@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of the ``repro`` package for NVIDIA Hopper.
+
+The port mirrors the JAX package's tree and names (``repro_torch.models``
+beside ``repro.models`` and so on) and imports nothing of it.  Its entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; there is
+no silent fallback to the CPU.  Importing the package does not touch CUDA.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["default_device"]
+
+
+def default_device(device=None) -> torch.device:
+    """Resolve the device an entry point runs on.
+
+    ``None`` means ``cuda``.  Raises ``RuntimeError`` when CUDA is asked for
+    (explicitly or by default) and no card is available: a caller that wants
+    the CPU says ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev

@@ -52,3 +52,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test watchdog limit override"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without a card"
+    )

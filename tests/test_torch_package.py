@@ -1,0 +1,115 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import neither
+jax nor the JAX package, and its entry points run on CUDA unless the caller
+asks for the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import default_device
+from repro_torch.configs import smoke_config
+from repro_torch.models.common import init_params
+from repro_torch.serve.engine import OrderedServingEngine
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def _is_forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    return env
+
+
+def test_importing_every_module_loads_no_jax_and_no_reference_package():
+    mods = list(_port_modules())
+    assert "repro_torch.kernels.attention.flash" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "import torch\n"
+        "print(torch.cuda.is_initialized())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    bad, cuda_initialized = out.stdout.split("\n")[:2]
+    assert bad == "[]"
+    assert cuda_initialized == "False"  # importing the package does not touch CUDA
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_imports_jax_or_the_reference_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _is_forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_entry_points_need_cuda_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without CUDA")
+    cfg = smoke_config("olmo-1b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg, 0)
+    params = init_params(cfg, 0, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        OrderedServingEngine(cfg, params)
+    eng = OrderedServingEngine(cfg, params, max_slots=2, max_len=24, device="cpu")
+    eng.submit(np.arange(5), max_new_tokens=3)
+    (comp,) = eng.run_to_completion()
+    assert len(comp.tokens) == 3
+    assert default_device("cpu") == torch.device("cpu")
+
+
+def test_launch_serve_runs_on_the_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    comps = main(["--device", "cpu", "--requests", "3", "--schedule", "prefill_first"])
+    assert [c.serial for c in comps] == [1, 2, 3]
+    assert "ordered egress verified" in capsys.readouterr().out
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": ""})
+
+
+def test_chip_smoke_fails_alone_and_without_a_card(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    runs = [_run_smoke(tmp_path)]
+    if not torch.cuda.is_available():
+        runs.append(_run_smoke(REPO))
+    for out in runs:
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
