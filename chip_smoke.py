@@ -7,9 +7,10 @@ NVIDIA H100.
 Phases; any failure exits non-zero and prints no result line:
 
 1. Device: the card's name and power limit (``nvidia-smi``).  Without CUDA
-   the script stops here.
-2. Kernels: builds K4 (``kernels/attention/csrc/flash_fwd.cu``) with nvcc for
-   sm_90a, holds it to the plain ``attention_ref`` on the card (max error
+   the script stops here.  Then every kernel source is compiled with nvcc
+   for sm_90a, all at once (one nvcc per source).
+2. Kernels: holds K4 (``kernels/attention/csrc/flash_fwd.cu``) to the plain
+   ``attention_ref`` on the card (max error
    within 2e-2 in bf16, 2e-5 in f32, the tolerances of the kernel tests) at
    the olmo-1b attention shape (B=1, H=Hkv=16, Dh=128) for S in
    {13, 128, 200, 512}, bf16 and f32, causal and not, plus one GQA case
@@ -22,6 +23,18 @@ Phases; any failure exits non-zero and prints no result line:
    schedules.  Egress must be in serial order, every token inside the vocab,
    and K4 launched exactly prefills x 16 times.  One request is then served
    again in f32 and checked token for token against ``generate``.
+4. K1 (``kernels/affine/csrc/affine.cu``, the device stage's affine map):
+   held to its plain version on the card bit for bit (tolerance 0), for
+   every column type with int and float parameters, in one batch that mixes
+   the types and at a row count that is not a multiple of the tile; then
+   times the kernel, the plain version and ``torch.add(b, x, alpha=a)`` on
+   each column (a yardstick only; the port never calls it) at the stream's
+   device batch: 16384 rows of 12 ``i8`` columns.
+5. Stream: ``python -m repro_torch.launch.stream`` as a subprocess (this
+   process holds a CUDA context, and device workers are forked): 1,048,576
+   tuples through ``widen -> dev0 -> dev1`` on the process runtime, K1 on
+   both device stages.  Egress must be in serial order and bit-identical to
+   NumPy, and K1 launched once per dispatch of the two stages.
 
 Output: human-readable lines, then a ``{"kernels": [...]}`` JSON line, and
 last ``{"ok": true, "device": {...}}``.
@@ -49,6 +62,9 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 CHECK_SEQ_LENS = (13, 128, 200, 512)
 SERVED_PROMPT_LENS = (17, 128, 200, 333, 512, 64, 45, 300)
 REPLACES = "src/repro/kernels/attention/flash.py:22 (_flash_kernel; pallas_call at :112)"
+K1_REPLACES = "src/repro/columnar/device.py:127 (_pallas_affine_body; pallas_call at :141)"
+STREAM_ARGS = ["--tuples", str(1 << 20), "--device-batch", "16384", "--inflight", "2"]
+STREAM_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -67,6 +83,31 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, iters: int = 100, reps: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph
+    and replayed between CUDA events, so no host launch cost sits between
+    the calls (for work shorter than its own launch)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def attention_bound(B, S, H, Hkv, Dh, dtype, causal) -> tuple[float, str]:
@@ -95,6 +136,26 @@ def phase_device() -> str:
     return name
 
 
+def phase_build() -> None:
+    """Compile every kernel source at once, one nvcc for each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.affine import affine
+    from repro_torch.kernels.attention import flash
+
+    sources = [flash.SOURCE, affine.SOURCE]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    log(f"[build] built {', '.join(os.path.relpath(s, ROOT) for s in sources)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for src in sources:
+        for line in _build.BUILD_LOGS.get(str(src), "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {src.name} ptxas: {line.strip()}")
+
+
 # ---------------------------------------------------------------- phase 2
 def _qkv(B, S, H, Hkv, Dh, dtype, gen):
     def randn(*shape):
@@ -109,13 +170,7 @@ def phase_kernels() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
     _build.load(flash.SOURCE)
-    log(f"[kernels] built {os.path.relpath(flash.SOURCE, ROOT)} in "
-        f"{time.perf_counter() - t0:.1f}s")
-    for line in _build.BUILD_LOGS.get(str(flash.SOURCE), "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[kernels]   ptxas: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(1, S, 16, 16, 128) for S in CHECK_SEQ_LENS] + [(1, 200, 16, 4, 64)]
@@ -258,11 +313,122 @@ def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+# ---------------------------------------------------------------- phase 4
+K1_PARAMS = ((3, -1), (1, 5), (2.5, -1), (3, 0.75), (0.1, 0.3))
+K1_DTYPES = (torch.int64, torch.float64, torch.int32, torch.float32)
+
+
+def _k1_column(dtype, rows: int, gen, float_param: bool) -> torch.Tensor:
+    if dtype == torch.int64:  # beyond int32; x*3 overflows on the int path
+        hi = 2**61 if float_param else 2**62
+        return torch.randint(-hi, hi, (rows,), generator=gen, device="cuda", dtype=dtype)
+    if dtype == torch.int32:
+        hi = 2**29 if float_param else 2**31 - 1
+        return torch.randint(-hi, hi, (rows,), generator=gen, device="cuda", dtype=dtype)
+    return (torch.randn(rows, generator=gen, device="cuda", dtype=torch.float64) * 1e3).to(dtype)
+
+
+def phase_k1() -> dict:
+    from repro_torch.kernels.affine import affine as k1
+    from repro_torch.kernels.affine.ref import Layout, affine_staged_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    checks = 0
+    for rows in (4093, 16384):  # 4093: not a multiple of any tile
+        for a, b in K1_PARAMS:
+            fp = isinstance(a, float) or isinstance(b, float)
+            cols = [_k1_column(dt, rows, gen, fp) for dt in K1_DTYPES]
+            for batch in [cols] + [[c] for c in cols]:  # mixed, then one type each
+                layout = Layout.of([c.dtype for c in batch], rows)
+                src = layout.stage(batch)
+                out = k1.affine_fwd(src, layout, a, b, torch.empty_like(src))
+                torch.cuda.synchronize()
+                ref = affine_staged_ref(src, layout, a, b, torch.empty_like(src))
+                if not all(torch.equal(layout.column(out, j), layout.column(ref, j))
+                           for j in range(layout.width)):  # every byte of every column
+                    raise RuntimeError(f"K1 disagrees with its plain version: rows {rows}, "
+                                       f"a={a} b={b}, dtypes {[c.dtype for c in batch]}")
+                checks += 1
+    log(f"[k1] {checks} batches (i8/f8/i4/f4, mixed and alone, int and float a, b) equal "
+        "the plain version bit for bit (tolerance 0)")
+
+    # times at the stream's device batch: 16384 rows of 12 i8 columns, dev0's a, b
+    rows, width, (a, b) = 16384, 12, (3, -1)
+    cols = [_k1_column(torch.int64, rows, gen, False) for _ in range(width)]
+    layout = Layout.of([c.dtype for c in cols], rows)
+    src = layout.stage(cols)
+    dst, dst_ref = torch.empty_like(src), torch.empty_like(src)
+    kernel = lambda: k1.affine_fwd(src, layout, a, b, dst)  # noqa: E731
+    plain = lambda: affine_staged_ref(src, layout, a, b, dst_ref)  # noqa: E731
+    library = lambda: [torch.add(b, c, alpha=a) for c in cols]  # noqa: E731
+    # device time per launch (graph replay); the eager call time beside it
+    # is bound by the host's launch cost at this size
+    ms, plain_ms, library_ms = (graph_time_ms(f) for f in (kernel, plain, library))
+    call_ms = {n: time_ms(f, iters=200) for n, f in
+               (("kernel", kernel), ("plain", plain), ("library", library))}
+    # the device stage's copies of one batch, pinned host <-> card (each
+    # copy outlasts its launch, so back-to-back eager copies keep the link busy)
+    host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=True)
+    h2d_ms = time_ms(lambda: src.copy_(host, non_blocking=True), iters=50)
+    d2h_ms = time_ms(lambda: host.copy_(dst, non_blocking=True), iters=50)
+    got, want = dst.view(torch.int64), dst_ref.view(torch.int64)  # no padding at 16384 rows
+    max_err = 0.0 if torch.equal(got, want) else max(float((got.double() - want.double()).abs().max()), 1.0)
+    nbytes = 2 * rows * width * 8  # each column read once, written once
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[k1] device time per launch at {rows} rows x {width} i8 (graph replay): kernel "
+        f"{ms:.5f} ms, plain {plain_ms:.5f} ms, torch.add x{width} {library_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms (bytes), share of bound {bound_ms / ms:.4f}; max|err| {max_err}")
+    log(f"[k1] eager call time (CUDA events around back-to-back calls): kernel "
+        f"{call_ms['kernel']:.5f} ms, plain {call_ms['plain']:.5f} ms, torch.add x{width} "
+        f"{call_ms['library']:.5f} ms")
+    log(f"[k1] copies of one batch ({layout.nbytes} B, pinned): host->card {h2d_ms:.5f} ms "
+        f"({layout.nbytes / h2d_ms / 1e6:.2f} GB/s), card->host {d2h_ms:.5f} ms "
+        f"({layout.nbytes / d2h_ms / 1e6:.2f} GB/s)")
+    return {
+        "name": "affine",
+        "route": "cuda",
+        "source": os.path.relpath(k1.SOURCE, ROOT),
+        "replaces": K1_REPLACES,
+        "launches": 0,  # filled from the stream run
+        "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+# ---------------------------------------------------------------- phase 5
+def phase_stream() -> int:
+    """The stream in a fresh process; returns K1's launches on its path."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.stream", *STREAM_ARGS],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=STREAM_TIMEOUT_S,
+    )
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"stream run failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    r = json.loads(lines[-1])["stream"]
+    if r["tuples"] < 1 << 20 or r["device_batch"] < 16384:
+        raise RuntimeError(f"stream ran below its size: {r['tuples']} tuples, batch {r['device_batch']}")
+    if r["launches"] != r["dispatches"] or r["launches"] == 0:
+        raise RuntimeError(f"K1 launched {r['launches']} times for {r['dispatches']} dispatches")
+    log(f"[stream] {r['tuples']} tuples in {r['wall_s']:.3f}s: {r['throughput_per_s']:.1f} "
+        f"tuples/s, p99 latency {r['p99_latency_ms']:.3f} ms; K1 launches on the main path: "
+        f"{r['launches']} = dispatches of both device stages")
+    return r["launches"]
+
+
 def main() -> None:
     name = phase_device()
-    entry = phase_kernels()
-    entry["launches"] = phase_serving()
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    phase_build()
+    flash_entry = phase_kernels()
+    flash_entry["launches"] = phase_serving()
+    affine_entry = phase_k1()
+    affine_entry["launches"] = phase_stream()
+    print(json.dumps({"kernels": [flash_entry, affine_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -9,7 +9,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["default_device"]
+__all__ = ["default_device", "have_cuda"]
+
+
+def have_cuda() -> bool:
+    """True when torch sees a CUDA card.  Asks NVML where it can
+    (``torch.cuda.device_count``), which, unlike ``is_available``, does not
+    initialise CUDA, so the caller may still fork workers that use the card."""
+    return torch.cuda.device_count() > 0
 
 
 def default_device(device=None) -> torch.device:
@@ -19,7 +26,7 @@ def default_device(device=None) -> torch.device:
     (explicitly or by default) and no card is available: a caller that wants
     the CPU says ``device="cpu"``."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not have_cuda():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )

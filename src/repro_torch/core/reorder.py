@@ -33,8 +33,10 @@ drained slot and corrupt the sequence one window later.
 
 This module is the port's own copy of ``repro.core.reorder`` (the port
 imports nothing of the JAX package).  The cross-process mirror of fig. 4
-(``repro.core.shm.ShmReorderRing``) is not ported yet.  Keep the copies in
-sync when evolving the protocol.
+lives in :mod:`.shm` (``ShmReorderRing``, also a copy): same entry condition
+and hole-punching, plus span slots, an in-band EOF marker, and the
+crash/replay rules the staged process backend (:mod:`.procrun`) builds on.
+Keep all the copies in sync when evolving the protocol.
 """
 from __future__ import annotations
 

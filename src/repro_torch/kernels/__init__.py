@@ -1,2 +1,3 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version (``attention``: K4, flash-attention forward)."""
+version (``affine``: K1, the device stage's affine map; ``attention``: K4,
+flash-attention forward)."""
