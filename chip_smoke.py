@@ -36,6 +36,34 @@ Phases; any failure exits non-zero and prints no result line:
    both device stages.  Egress must be in serial order and bit-identical to
    NumPy, and K1 launched once per dispatch of the two stages.
 
+Phases 6-8 hold each kernel to its plain version with the sweeps of
+``repro_torch.kernels.parity``, which the ``cuda``-marked tests run too.
+
+6. K2 (``kernels/reorder/csrc/reorder.cu``, the reorder-commit): held to
+   ``commit_ref`` on the card bit for bit (tolerance 0) over multi-commit
+   drains (S in {8, 64, 32, 1000} x W in {128, 256, 3}, f32 and bf16) with
+   -1 padding and refused serials (stale and past the window); then one
+   ordering point at a real size through ``ops.commit``: a ring of 16,384
+   slots x 128 f32 takes 1,048,576 serials, shuffled within blocks of 8,192
+   so that all are accepted, in commits of 512 with 1 entry in 16 padded
+   -1.  The emitted rows must equal the payload table in serial order, bit
+   for bit, and K2 launched 3 x commits times.  One commit is timed by
+   graph replay, with the plain version beside it.
+7. K3 (``kernels/dispatch/csrc/dispatch.cu``, the hybrid-queue dispatch):
+   held to ``dispatch_ref`` bit for bit on a sweep of six shapes with
+   Zipf-skewed ids, -1s and ids past P, then through
+   ``ops.dispatch`` on ``kernel_bench``'s shape (T=256, P=16, C=32, W=128
+   f32), a Zipf(1.1)-skewed keyed batch (T=16384, P=64, C=512, W=32 f32,
+   with -1s; hot partitions overflow and drop) and MoE routing at
+   phi3.5-moe's widths (4,096 tokens top-2 of 16 experts, C=640, W=4,096
+   bf16); K3 launched 4 x calls times.  Timed at the MoE shape.
+8. K5 (``kernels/ssd/csrc/ssd.cu``, the SSD chunked scan): held to the plain
+   ``ssd_chunked`` on the card within 2e-4 (the kernel tests' tolerance; a
+   bf16 ``x`` adds one bf16 step, 2**-7 relative) at six shapes, then
+   through ``ops.ssd`` at mamba2-780m's widths (H=48, P=64, N=128,
+   chunk=256, B=1, L=2048, f32), launched once, and timed there; both
+   sides' ``y`` is printed against an f64 computation.
+
 Output: human-readable lines, then a ``{"kernels": [...]}`` JSON line, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -65,6 +93,9 @@ REPLACES = "src/repro/kernels/attention/flash.py:22 (_flash_kernel; pallas_call 
 K1_REPLACES = "src/repro/columnar/device.py:127 (_pallas_affine_body; pallas_call at :141)"
 STREAM_ARGS = ["--tuples", str(1 << 20), "--device-batch", "16384", "--inflight", "2"]
 STREAM_TIMEOUT_S = 300
+K2_REPLACES = "src/repro/kernels/reorder/reorder.py:27 (_commit_kernel; pallas_call at :110)"
+K3_REPLACES = "src/repro/kernels/dispatch/dispatch.py:23 (_dispatch_kernel; pallas_call at :79)"
+K5_REPLACES = "src/repro/kernels/ssd/ssd.py:24 (_ssd_kernel; pallas_call at :98)"
 
 
 def log(msg: str) -> None:
@@ -143,8 +174,11 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.affine import affine
     from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.dispatch import dispatch
+    from repro_torch.kernels.reorder import reorder
+    from repro_torch.kernels.ssd import ssd
 
-    sources = [flash.SOURCE, affine.SOURCE]
+    sources = [flash.SOURCE, affine.SOURCE, reorder.SOURCE, dispatch.SOURCE, ssd.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -421,6 +455,267 @@ def phase_stream() -> int:
     return r["launches"]
 
 
+# ---------------------------------------------------------------- phase 6
+K2_RING, K2_WIDTH, K2_SERIALS, K2_BATCH = 16384, 128, 1 << 20, 512
+
+
+def commit_bound(S, W, itemsize, K, accepted, count, fresh) -> float:
+    """Least time of one commit, in ms: the serials, the accepted payload
+    rows, present flags and next read once; the accepted mask, the accepted
+    rows into the ring, the present flags, the whole (S, W) ``emitted``,
+    count and next written once; and the emitted rows that this batch did
+    not bring read from the ring.  Bytes bound it (no arithmetic to speak
+    of)."""
+    row = W * itemsize
+    nbytes = (K * 4 + accepted * row + S + 4) + (K + accepted * row + S + S * row + 8) \
+        + (count - fresh) * row
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_k2() -> dict:
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.reorder import reorder as k2
+    from repro_torch.kernels.reorder.ops import commit
+    from repro_torch.kernels.reorder.ref import ReorderState, commit_ref, init_state
+
+    checks = parity.check_reorder(k2.commit_fwd)
+    log(f"[k2] {checks} commits (S x W in {parity.REORDER_SWEEP}, f32 and bf16, -1 padding, "
+        "stale and past-window serials refused) equal commit_ref bit for bit (tolerance 0)")
+
+    # one ordering point at a real size, through the public wrapper
+    S, W, N, K = K2_RING, K2_WIDTH, K2_SERIALS, K2_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    table = torch.randn(N, W, generator=gen, device="cuda")  # payload of serial t = row t
+    block = torch.arange(N, device="cuda") // (S // 2)
+    order = torch.argsort(torch.rand(N, generator=gen, device="cuda", dtype=torch.float64)
+                          + block.double()).to(torch.int32)  # shuffled within blocks of S/2
+    per = K - K // 16  # serials per commit; 1 entry in 16 is -1
+    commits = -(-N // per)
+    keep = torch.ones(commits, K, dtype=torch.bool, device="cuda")
+    pads = torch.rand(commits, K, generator=gen, device="cuda").argsort(dim=1)[:, : K // 16]
+    keep.scatter_(1, pads, False)
+    entries = torch.full((commits, K), -1, dtype=torch.int32, device="cuda")
+    entries[keep] = torch.cat([order, order.new_full((commits * per - N,), -1)])
+    out = torch.empty(N + S, W, device="cuda")  # rows past a commit's count land in the tail
+    ar = torch.arange(S, device="cuda", dtype=torch.int32)
+    refused = torch.zeros((), dtype=torch.int64, device="cuda")
+    state = init_state(S, W, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    commit.LAUNCHES = 0
+    for i in range(commits):
+        serials = entries[i]
+        head = state.next
+        state, em, cnt, acc = commit(state, serials, table[serials.clamp(min=0).long()])
+        out.index_copy_(0, torch.where(ar < cnt, head + ar, N + ar).long(), em)
+        refused += (acc != (serials >= 0)).sum()
+    launches = commit.LAUNCHES
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if int(state.next) != N or int(refused) != 0 or bool(state.present.any()):
+        raise RuntimeError(f"K2 drain: next {int(state.next)} of {N}, {int(refused)} serials "
+                           "refused or accepted wrongly")
+    if not parity.bits_equal(out[:N], table):
+        raise RuntimeError("K2 drain: the emitted rows differ from the payload table")
+    if launches != k2.LAUNCHES_PER_CALL * commits:
+        raise RuntimeError(f"K2 launched {launches} times for {commits} commits")
+    log(f"[k2] drain: {N} serials through a {S} x {W} f32 ring in {commits} commits of {K} "
+        f"({per} serials, {K - per} pads) in {wall:.3f}s; emitted rows equal the payload table "
+        f"in serial order bit for bit; K2 launches on the main path: {launches} = "
+        f"{k2.LAUNCHES_PER_CALL} x {commits} commits")
+    del table, order, entries, keep, out
+
+    # one commit timed by graph replay: `per` serials fill the head of a ring
+    # in which a quarter of the window is already waiting, past a gap; from
+    # the second replay on, each commit accepts the `per` and emits them
+    start = 5 * S + 123
+    state = init_state(S, W, device="cuda", start=start)
+    gap = per + 1
+    waiting = (start + gap + torch.randperm(S - gap, generator=gen, device="cuda")[: S // 4]) % S
+    state.present[waiting] = True
+    state.buf.copy_(torch.randn(S, W, generator=gen, device="cuda"))
+    serials = torch.full((K,), -1, dtype=torch.int32, device="cuda")
+    slots = torch.randperm(K, generator=gen, device="cuda")[:per]
+    serials[slots] = start + torch.randperm(per, generator=gen, device="cuda").to(torch.int32)
+    payloads = torch.randn(K, W, generator=gen, device="cuda")
+    k2.commit_fwd(state, serials, payloads)
+    _, em, cnt, acc = k2.commit_fwd(state, serials, payloads)
+    ref = commit_ref(ReorderState(*(t.clone() for t in state)), serials, payloads)
+    if not (parity.bits_equal(em, ref[1]) and int(cnt) == int(ref[2]) == per):
+        raise RuntimeError("K2 timing commit disagrees with commit_ref")
+    ms = graph_time_ms(lambda: k2.commit_fwd(state, serials, payloads))
+    plain_ms = graph_time_ms(lambda: commit_ref(state, serials, payloads))
+    bound_ms = commit_bound(S, W, 4, K, int(acc.sum()), int(cnt), per)
+    log(f"[k2] one commit at S={S} W={W} f32, K={K} ({per} accepted and emitted), device time "
+        f"(graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+        f"(bytes), share of bound {bound_ms / ms:.4f}")
+    return {
+        "name": "reorder_commit", "route": "cuda",
+        "source": os.path.relpath(k2.SOURCE, ROOT), "replaces": K2_REPLACES,
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------- phase 7
+def dispatch_bound(T, P, C, W, itemsize, kept) -> float:
+    """Least time of one dispatch, in ms: the ids and the ``kept`` payload
+    rows (those that land in a buffer) read once, the whole zero-filled
+    buffers, counts and dest written once.  Bytes bound it."""
+    nbytes = T * 4 + kept * W * itemsize + P * C * W * itemsize + P * 4 + T * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_k3() -> dict:
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.dispatch import dispatch as k3
+    from repro_torch.kernels.dispatch.ops import dispatch
+    from repro_torch.kernels.dispatch.ref import dispatch_ref
+
+    rng = np.random.RandomState(3)
+
+    def same(got, want):
+        return all(parity.bits_equal(a, b) for a, b in zip(got, want))
+
+    checks = parity.check_dispatch(k3.dispatch_fwd)
+    log(f"[k3] {checks} sweep cases (T,P,C,W in {parity.DISPATCH_SWEEP}, f32 and bf16, "
+        "Zipf ids with -1s and ids past P) equal dispatch_ref bit for bit (tolerance 0)")
+
+    # the main path, through the public wrapper
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens, experts, top_k, d_model = 4096, 16, 2, 4096  # phi3.5-moe
+    cap = max(int(np.ceil(tokens * top_k / experts * 1.25)), 4)  # ffn.py:114
+    gates = torch.randn(tokens, experts, generator=gen, device="cuda")
+    moe_ids = gates.topk(top_k, dim=1).indices.to(torch.int32).reshape(-1)
+    hidden = torch.randn(tokens, d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    cases = {
+        "kernel_bench": (torch.from_numpy(rng.randint(-1, 16, 256).astype(np.int32)).cuda(),
+                         torch.randn(256, 128, generator=gen, device="cuda"), 16, 32),
+        "skewed keyed": (torch.from_numpy(parity.zipf_ids(rng, 16384, 64)).cuda(),
+                         torch.randn(16384, 32, generator=gen, device="cuda"), 64, 512),
+        "moe": (moe_ids, hidden.repeat_interleave(top_k, dim=0), experts, cap),
+    }
+    torch.cuda.synchronize()
+    dispatch.LAUNCHES = 0
+    outs = {name: dispatch(*args) for name, args in cases.items()}
+    launches = dispatch.LAUNCHES
+    torch.cuda.synchronize()
+    if launches != k3.LAUNCHES_PER_CALL * len(cases):
+        raise RuntimeError(f"K3 launched {launches} times for {len(cases)} dispatches")
+    for name, args in cases.items():
+        ids, pay, P, C = args
+        if not same(outs[name], dispatch_ref(*args)):
+            raise RuntimeError(f"K3 disagrees with dispatch_ref on the {name} batch")
+        counts = outs[name][1]
+        dropped = int((outs[name][2] < 0).sum()) - int((ids < 0).sum())
+        log(f"[k3] {name}: T={ids.numel()} P={P} C={C} W={pay.shape[1]} {str(pay.dtype)[6:]}: "
+            f"equal to dispatch_ref bit for bit; counts max {int(counts.max())} min "
+            f"{int(counts.min())}, {dropped} tuples dropped past capacity")
+    if int((outs["skewed keyed"][1] > 512).sum()) == 0:
+        raise RuntimeError("the skewed keyed batch overflowed no partition")
+    log(f"[k3] K3 launches on the main path: {launches} = {k3.LAUNCHES_PER_CALL} x "
+        f"{len(cases)} dispatches")
+
+    ids, pay, P, C = cases["moe"]
+    kept = int((outs["moe"][2] >= 0).sum())
+    ms = graph_time_ms(lambda: k3.dispatch_fwd(ids, pay, P, C), iters=20)
+    plain_ms = graph_time_ms(lambda: dispatch_ref(ids, pay, P, C), iters=20)
+    bound_ms = dispatch_bound(ids.numel(), P, C, pay.shape[1], pay.element_size(), kept)
+    log(f"[k3] MoE dispatch T={ids.numel()} P={P} C={C} W={pay.shape[1]} bf16 ({kept} rows "
+        f"kept), device time "
+        f"(graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+        f"(bytes), share of bound {bound_ms / ms:.4f}")
+    return {
+        "name": "dispatch", "route": "cuda",
+        "source": os.path.relpath(k3.SOURCE, ROOT), "replaces": K3_REPLACES,
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------- phase 8
+K5_MAIN = (1, 2048, 48, 64, 128, 256)  # mamba2-780m: B, L, H, P, N, chunk
+
+
+def _ssd_inputs(B, L, H, P, N, gen):
+    """The reference test's draw: softplus dt, negative A, B and C x 0.3."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (randn(B, L, H, P), torch.nn.functional.softplus(randn(B, L, H)),
+            -torch.exp(randn(H) * 0.3), randn(B, L, N) * 0.3, randn(B, L, N) * 0.3)
+
+
+def ssd_bound(B, L, H, P, N, chunk, x_itemsize) -> tuple[float, str]:
+    """Least time of the scan, in ms, against x, dt, A, B, C read and y, hT
+    written once.  The multiply-adds in f32 that the function needs: C B^T
+    once per (b, chunk), since B and C are shared by the heads, and only its
+    causal lower triangle, cl (cl + 1) / 2 pairs of N; per (b, h, chunk) the
+    masked product with dt x over the same pairs (P each), the state update
+    (cl P N), and C state^T (cl P N) in every chunk but the first, where the
+    state is zero.  A kernel that recomputes C B^T per head, or computes the
+    zeroed upper triangle, does more than this."""
+    chunks, pairs = L // chunk, chunk * (chunk + 1) // 2
+    macs = B * chunks * pairs * N + B * H * (
+        chunks * (pairs * P + chunk * P * N) + (chunks - 1) * chunk * P * N)
+    ops = 2 * macs
+    nbytes = (B * L * H * P * x_itemsize * 2 + B * L * H * 4 + H * 4 + 2 * B * L * N * 4
+              + B * H * P * N * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k5() -> dict:
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.ssd import ssd as k5
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_scan_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    for label, err in parity.check_ssd(k5.ssd_fwd):
+        log(f"[k5] {label}: max|err| {err:.3g} (tol {parity.SSD_TOL} + rtol x |ref|) ok")
+
+    # the main path, through the public wrapper, at mamba2-780m's widths
+    B, L, H, P, N, chunk = K5_MAIN
+    x, dt, A, Bm, Cm = _ssd_inputs(B, L, H, P, N, gen)
+    torch.cuda.synchronize()
+    ssd.LAUNCHES = 0
+    got = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    launches = ssd.LAUNCHES
+    torch.cuda.synchronize()
+    if launches != 1:
+        raise RuntimeError(f"K5 launched {launches} times for one scan")
+    if not all(bool(t.isfinite().all()) for t in got):
+        raise RuntimeError("K5 output is not finite at mamba2-780m")
+    plain = ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+    ok, max_err = parity.ssd_close(got, plain, parity.SSD_TOL)
+    log(f"[k5] mamba2-780m B,L,H,P,N,chunk={K5_MAIN} f32 (main path): max|err| {max_err:.3g} "
+        f"(tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("K5 disagrees with ssd_chunked at mamba2-780m")
+    exact = ssd_chunked(*(t.double() for t in (x, dt, A, Bm, Cm)), chunk)[0]
+    log(f"[k5] y vs the f64 computation: kernel {float((got[0] - exact).abs().max()):.3g}, "
+        f"plain {float((plain[0] - exact).abs().max()):.3g}; max|y| {float(exact.abs().max()):.4g}")
+    del exact
+    ms = time_ms(lambda: k5.ssd_fwd(x, dt, A, Bm, Cm, chunk), iters=20, warmup=2)
+    plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, Bm, Cm, chunk), iters=10, warmup=2)
+    bound_ms, bound_by = ssd_bound(B, L, H, P, N, chunk, 4)
+    log(f"[k5] K5 launches on the main path: {launches}; time at mamba2-780m: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), share of bound "
+        f"{bound_ms / ms:.4f}")
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": os.path.relpath(k5.SOURCE, ROOT), "replaces": K5_REPLACES,
+        "launches": launches, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -428,7 +723,8 @@ def main() -> None:
     flash_entry["launches"] = phase_serving()
     affine_entry = phase_k1()
     affine_entry["launches"] = phase_stream()
-    print(json.dumps({"kernels": [flash_entry, affine_entry]}), flush=True)
+    entries = [flash_entry, affine_entry, phase_k2(), phase_k3(), phase_k5()]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -6,13 +6,18 @@ headers, so ``nvcc`` takes seconds).  It is compiled for Hopper with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-under a name keyed by a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  A missing ``nvcc`` or a
-failed build raises with the compiler's output.
+under a name keyed by a hash of the source, the shared headers in
+``kernels/csrc/`` and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  A missing ``nvcc`` or a failed build raises
+with the compiler's output.
+
+:func:`entry` gives a source's C entry point, typed, and :func:`launch` calls
+it on PyTorch's current stream of a device and raises on a CUDA error.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,8 +25,11 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO_ROOT / "build" / "kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"  # headers the sources share
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +58,8 @@ def nvcc_path() -> str:
 
 def _target(source: Path) -> Path:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
@@ -80,3 +90,29 @@ def load(source: Path) -> ctypes.CDLL:
         if key not in _LIBS:
             _LIBS[key] = ctypes.CDLL(str(build(source)))
         return _LIBS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def entry(source: Path, symbol: str, argtypes: tuple, constants: tuple = ()):
+    """The C function ``symbol`` of ``source``'s library, returning a
+    cudaError_t as an int and taking ``argtypes`` then the stream.  Each
+    ``(name, value)`` of ``constants`` is a constant the binding relies on,
+    checked against the library's function ``name``."""
+    lib = load(source)
+    for name, want in constants:
+        got = getattr(lib, name)()
+        if got != want:
+            raise RuntimeError(f"{source.name} has {name}() = {got}; its binding expects {want}")
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    return fn
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call ``fn`` (from :func:`entry`) with ``args`` and the current stream
+    of ``device``; raise if it returns a CUDA error.  Does not synchronise."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn.__name__} failed with cudaError {err}")

@@ -10,7 +10,6 @@ stream, without synchronising.  Anything the kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
@@ -22,21 +21,15 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "affine.cu"
 MAX_COLS = 64  # kMaxCols in the source
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load(SOURCE).affine_launch
-    fn.restype = ctypes.c_int
-    # src, dst; ncols, offsets, rows, codes; ai, bi, af, bf, af32, bf32,
-    # a_float, b_float; stream
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_int),
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    return fn
+# src, dst; ncols, offsets, rows, codes; ai, bi, af, bf, af32, bf32,
+# a_float, b_float
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+    ctypes.POINTER(ctypes.c_int),
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+)
 
 
 def _as_int64(v) -> int:
@@ -69,14 +62,10 @@ def affine_fwd(src: torch.Tensor, layout: Layout, a, b, dst: torch.Tensor) -> to
     offsets = (ctypes.c_longlong * n)(*layout.offsets)
     rows = (ctypes.c_longlong * n)(*([layout.rows] * n))
     codes = (ctypes.c_int * n)(*layout.codes)
-    fn = _entry()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            src.data_ptr(), dst.data_ptr(), n, offsets, rows, codes,
-            _as_int64(s.a), _as_int64(s.b), s.af, s.bf, s.af32, s.bf32,
-            int(s.a_float), int(s.b_float), stream,
-        )
-    if err:
-        raise RuntimeError(f"affine_launch failed with cudaError {err}")
+    _build.launch(
+        _build.entry(SOURCE, "affine_launch", _ARGTYPES), src.device,
+        src.data_ptr(), dst.data_ptr(), n, offsets, rows, codes,
+        _as_int64(s.a), _as_int64(s.b), s.af, s.bf, s.af32, s.bf32,
+        int(s.a_float), int(s.b_float),
+    )
     return dst

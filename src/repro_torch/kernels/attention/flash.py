@@ -47,13 +47,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
 
 
-def _entry():
-    lib = _build.load(SOURCE)
-    fn = lib.flash_fwd
-    fn.restype = ctypes.c_int
-    # q, k, v, o; B, S, H, Hkv, Dh, dtype code, causal; stream
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    return fn
+# q, k, v, o; B, S, H, Hkv, Dh, dtype code, causal
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> torch.Tensor:
@@ -63,13 +58,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
         raise ValueError(f"flash_fwd launches a CUDA kernel; tensors are on {q.device}")
     B, S, H, Dh = q.shape
     o = torch.empty_like(q)
-    fn = _entry()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, H, k.shape[2], Dh, _DTYPE_CODES[q.dtype], int(causal), stream,
-        )
-    if err:
-        raise RuntimeError(f"flash_fwd launch failed with cudaError {err}")
+    _build.launch(
+        _build.entry(SOURCE, "flash_fwd", _ARGTYPES), q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, S, H, k.shape[2], Dh, _DTYPE_CODES[q.dtype], int(causal),
+    )
     return o

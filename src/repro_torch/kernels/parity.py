@@ -1,0 +1,164 @@
+"""Kernels K2, K3 and K5 held to their plain versions on the same inputs.
+
+``check_reorder``, ``check_dispatch`` and ``check_ssd`` run one sweep each
+through a kernel call given by the caller (the public wrapper or the
+binding) and through the plain version, and raise ``RuntimeError`` at the
+first disagreement: K2 and K3 bit for bit (tolerance 0), K5 within
+:data:`SSD_TOL`.  ``chip_smoke.py`` and the ``cuda``-marked tests run them on
+the card; the CPU tests share the input makers below.  Inputs are drawn with
+numpy from a seed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .dispatch.ref import dispatch_ref
+from .reorder.ref import ReorderState, commit_ref, init_state
+from .ssd.ref import ssd_scan_ref
+
+COMMIT_K = 8  # entries per commit in the reorder sweep, as the reference tests
+REORDER_SWEEP = ((8, 128), (64, 128), (32, 256), (1000, 3))  # (S, W)
+# (T, P, C, W): the reference tests' shapes, then odd widths, a skewed keyed
+# batch that overflows, and one slot per partition at the largest P
+DISPATCH_SWEEP = ((64, 8, 16, 128), (128, 4, 8, 128), (32, 16, 4, 256), (1000, 7, 50, 3),
+                  (16384, 64, 512, 32), (300, 1024, 1, 5))
+# (B, L, H, P, N, chunk): the reference tests' shapes, chunk=256, a chunk
+# that is no multiple of the 64-row tile, and a short one
+SSD_SWEEP = ((1, 128, 2, 64, 128, 64), (2, 256, 4, 64, 128, 128), (1, 512, 2, 128, 64, 128),
+             (1, 512, 2, 64, 128, 256), (1, 300, 3, 64, 64, 100), (2, 128, 1, 128, 128, 32))
+SSD_TOL = 2e-4  # tests/test_kernels.py:153-154
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def commit_batches(rng, size: int, total: int, start: int = 0, k: int = COMMIT_K):
+    """Commit batches of ``k`` serials (padded with -1) that drain ``total``
+    serials from ``start`` through a ring of ``size`` slots.  Each batch
+    takes distinct serials inside the window; some entries are serials the
+    ring must refuse (already emitted, or past the window)."""
+    pool = list(start + rng.permutation(total))
+    nxt, done = start, set()  # the ring's next at each commit
+    while pool:
+        batch = [s for s in pool if nxt <= s < nxt + size][: k - 2]
+        extra = []
+        if rng.rand() < 0.5 and nxt > start:
+            extra.append(nxt - 1)  # stale: already emitted
+        if rng.rand() < 0.5:
+            extra.append(nxt + size + int(rng.randint(0, 3)) + 100 * total)  # past the window
+        for s in batch:
+            pool.remove(s)
+            done.add(s)
+        while nxt in done:
+            nxt += 1
+        entries = batch + extra + [-1] * (k - len(batch) - len(extra))
+        yield np.asarray(entries, np.int32)[rng.permutation(k)]
+
+
+def zipf_ids(rng, T: int, P: int, s: float = 1.1, invalid: float = 0.05) -> np.ndarray:
+    """Partition ids with Zipf(s) skew over P partitions (partition 0 the
+    hottest), and a share of -1s."""
+    w = 1.0 / np.arange(1, P + 1) ** s
+    ids = rng.choice(P, size=T, p=w / w.sum()).astype(np.int32)
+    ids[rng.rand(T) < invalid] = -1
+    return ids
+
+
+def ssd_inputs(B, L, H, P, N, seed: int = 4):
+    """The reference test's draw: x, softplus dt, negative A, B and C x 0.3,
+    as float32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, H)))).astype(np.float32)  # softplus
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = (rng.standard_normal((B, L, N)) * 0.3).astype(np.float32)
+    Cm = (rng.standard_normal((B, L, N)) * 0.3).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Every bit of two tensors of one dtype and shape equal (NaN and -0.0
+    included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def check_reorder(commit_fn, device="cuda", seed: int = 0) -> int:
+    """Multi-commit drains of 3 S serials over :data:`REORDER_SWEEP`, f32 and
+    bf16, with -1 padding and refused serials, through ``commit_fn(state,
+    serials, payloads)`` and ``commit_ref``; every output and the ring equal
+    bit for bit.  Returns the number of commits."""
+    rng = np.random.RandomState(seed)
+    commits = 0
+    for size, width in REORDER_SWEEP:
+        for dtype in DTYPES:
+            st = init_state(size, width, dtype, device=device)
+            st_ref = ReorderState(*(t.clone() for t in st))
+            for serials in commit_batches(rng, size, 3 * size):
+                s = torch.from_numpy(serials).to(device)
+                pay = torch.from_numpy(rng.standard_normal((len(serials), width))).to(device, dtype)
+                st, em, cnt, acc = commit_fn(st, s, pay)
+                st_ref, em_r, cnt_r, acc_r = commit_ref(st_ref, s, pay)
+                same = (int(cnt) == int(cnt_r) and int(st.next) == int(st_ref.next)
+                        and torch.equal(acc, acc_r) and torch.equal(st.present, st_ref.present)
+                        and bits_equal(em, em_r) and bits_equal(st.buf, st_ref.buf))
+                if not same:
+                    raise RuntimeError(f"K2 disagrees with commit_ref: S={size} W={width} {dtype}, "
+                                       f"serials {serials.tolist()}")
+                commits += 1
+            if int(st.next) != 3 * size or bool(st.present.any()):
+                raise RuntimeError(f"K2 sweep S={size} W={width} {dtype} did not drain")
+    return commits
+
+
+def check_dispatch(dispatch_fn, device="cuda", seed: int = 1) -> int:
+    """:data:`DISPATCH_SWEEP`, f32 and bf16, Zipf-skewed ids with -1s and
+    some ids past P, through ``dispatch_fn(ids, payloads, P, C)`` and
+    ``dispatch_ref``; buffers, counts and dest equal bit for bit.  Returns
+    the number of cases."""
+    rng = np.random.RandomState(seed)
+    cases = 0
+    for T, P, C, W in DISPATCH_SWEEP:
+        for dtype in DTYPES:
+            ids = zipf_ids(rng, T, P)
+            past = rng.rand(T) < 0.02
+            ids[past] = P + rng.randint(0, 5, int(past.sum()))  # invalid too
+            ids = torch.from_numpy(ids).to(device)
+            pay = torch.from_numpy(rng.standard_normal((T, W))).to(device, dtype)
+            got = dispatch_fn(ids, pay, P, C)
+            if not all(bits_equal(a, b) for a, b in zip(got, dispatch_ref(ids, pay, P, C))):
+                raise RuntimeError(f"K3 disagrees with dispatch_ref at T,P,C,W={T, P, C, W} {dtype}")
+            cases += 1
+    return cases
+
+
+def ssd_close(got, want, rtol: float) -> tuple[bool, float]:
+    """(y and hT within SSD_TOL + rtol |y_ref| and SSD_TOL (1 + |hT_ref|),
+    the largest absolute difference)."""
+    (y, hT), (y_r, h_r) = got, want
+    err = max(float((y.float() - y_r.float()).abs().max()), float((hT - h_r).abs().max()))
+    ok = all(bool(((a.float() - b.float()).abs() <= SSD_TOL + r * b.float().abs()).all())
+             for a, b, r in ((y, y_r, rtol), (hT, h_r, SSD_TOL)))
+    return ok, err
+
+
+def check_ssd(ssd_fn, device="cuda", seed: int = 4) -> list[tuple[str, float]]:
+    """:data:`SSD_SWEEP` with x in f32 and in bf16 through ``ssd_fn(x, dt, A,
+    Bm, Cm, chunk)`` and ``ssd_scan_ref``, within :data:`SSD_TOL` (a bf16 x
+    adds one bf16 step, 2**-7 relative, to y).  Returns (case, max |err|)
+    for each case."""
+    rows = []
+    for B, L, H, P, N, chunk in SSD_SWEEP:
+        x, dt, A, Bm, Cm = (torch.from_numpy(a).to(device) for a in ssd_inputs(B, L, H, P, N, seed))
+        for xd in (x, x.to(torch.bfloat16)):
+            label = f"B,L,H,P,N,chunk={B, L, H, P, N, chunk} x {str(xd.dtype)[6:]}"
+            rtol = 2**-7 if xd.dtype == torch.bfloat16 else SSD_TOL
+            ok, err = ssd_close(ssd_fn(xd, dt, A, Bm, Cm, chunk),
+                                ssd_scan_ref(xd, dt, A, Bm, Cm, chunk), rtol)
+            if not ok:
+                raise RuntimeError(f"K5 disagrees with ssd_chunked at {label}: max|err| {err:.3g}")
+            rows.append((label, err))
+    return rows

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..kernels.reorder.ref import ReorderState
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -31,3 +32,15 @@ def params_from_numpy(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def reorder_state_from_numpy(buf, present, next, device=None):
+    """A reorder ring as numpy arrays (``np.asarray`` of each field of the
+    JAX package's ``ReorderState``; bf16 included) -> the port's
+    :class:`~repro_torch.kernels.reorder.ref.ReorderState` on ``device``,
+    bit for bit, so that a ring can go on in the port where JAX left it."""
+    return ReorderState(
+        buf=tensor_from_numpy(buf, device),
+        present=tensor_from_numpy(np.asarray(present, dtype=bool), device),
+        next=tensor_from_numpy(np.asarray(next, dtype=np.int32).reshape(()), device),
+    )

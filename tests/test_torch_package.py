@@ -44,7 +44,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
     for m in ("repro_torch.kernels.attention.flash", "repro_torch.kernels.affine.affine",
               "repro_torch.columnar.device", "repro_torch.core.procrun",
               "repro_torch.core.api", "repro_torch.analysis.plancheck",
-              "repro_torch.launch.stream"):
+              "repro_torch.launch.stream", "repro_torch.kernels.reorder.reorder",
+              "repro_torch.kernels.reorder.ops", "repro_torch.kernels.dispatch.dispatch",
+              "repro_torch.kernels.dispatch.ops", "repro_torch.kernels.ssd.ssd",
+              "repro_torch.kernels.ssd.ops"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -117,3 +120,37 @@ def test_chip_smoke_fails_alone_and_without_a_card(tmp_path):
     for out in runs:
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def _wrapper_call(name):
+    """A call of one kernel wrapper on tensors that are not on the CPU (the
+    ``meta`` device stands in for a card this machine does not have)."""
+    meta = dict(device="meta")
+    if name == "commit":
+        from repro_torch.kernels.reorder.ops import commit
+        from repro_torch.kernels.reorder.ref import init_state
+
+        return commit, lambda: commit(init_state(8, 4, **meta), torch.zeros(2, dtype=torch.int32, **meta),
+                                      torch.zeros(2, 4, **meta))
+    if name == "dispatch":
+        from repro_torch.kernels.dispatch.ops import dispatch
+
+        return dispatch, lambda: dispatch(torch.zeros(4, dtype=torch.int32, **meta),
+                                          torch.zeros(4, 8, **meta), 2, 2)
+    from repro_torch.kernels.ssd.ops import ssd
+
+    B, L, H, P, N = 1, 64, 2, 64, 64
+    return ssd, lambda: ssd(torch.zeros(B, L, H, P, **meta), torch.zeros(B, L, H, **meta),
+                            torch.zeros(H, **meta), torch.zeros(B, L, N, **meta),
+                            torch.zeros(B, L, N, **meta), chunk=64)
+
+
+@pytest.mark.parametrize("name", ["commit", "dispatch", "ssd"])
+def test_kernel_wrappers_raise_off_the_cpu_and_never_fall_back(name):
+    """Only a CPU tensor takes the plain version: any other device goes to
+    the kernel's binding, which raises when it cannot launch."""
+    wrapper, call = _wrapper_call(name)
+    before = wrapper.LAUNCHES
+    with pytest.raises(ValueError, match="launches a CUDA kernel; tensors are on meta"):
+        call()
+    assert wrapper.LAUNCHES == before

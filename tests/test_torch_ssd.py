@@ -1,0 +1,178 @@
+"""Port parity: K5's wrapper and plain version (``kernels/ssd``) against the
+JAX package's ``ssd_chunked`` and its Pallas ``ssd_pallas`` in interpret
+mode, within 2e-4 (the tolerance of ``tests/test_kernels.py:151-152``), and
+``segsum`` / ``ssd_decode_step`` against theirs.
+
+Inputs are made with numpy from a seed, as the reference test draws them
+(softplus dt, negative A, B and C scaled by 0.3), and handed to both
+frameworks; jax is imported only inside the tests.  On the CPU the wrapper
+takes the plain version; K5 itself runs only on the card (``cuda`` marker).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import parity
+from repro_torch.kernels.ssd import ssd as k5
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ref import segsum, ssd_chunked, ssd_decode_step, ssd_scan_ref
+
+TOL = parity.SSD_TOL
+# the shapes of tests/test_kernels.py:141, then chunk=256 (mamba2-780m's)
+SHAPES = list(parity.SSD_SWEEP[:4])
+
+
+def _t(arrays, device="cpu"):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk", SHAPES)
+def test_ssd_matches_jax_chunked_and_pallas(B, L, H, P, N, chunk):
+    import jax.numpy as jnp
+    from repro.kernels.ssd import ops as jax_ops
+    from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+
+    arrays = parity.ssd_inputs(B, L, H, P, N)
+    before = ssd.LAUNCHES
+    y, hT = ssd(*_t(arrays), chunk=chunk)
+    assert ssd.LAUNCHES == before  # the CPU path launches nothing
+    assert y.shape == (B, L, H, P) and y.dtype == torch.float32
+    assert hT.shape == (B, H, P, N) and hT.dtype == torch.float32
+    ja = [jnp.asarray(a) for a in arrays]
+    y_r, h_r = jax_ssd_chunked(*ja, chunk=chunk)
+    y_p, h_p = jax_ops.ssd(*ja, chunk=chunk)
+    for got, want in ((y, y_r), (hT, h_r), (y, y_p), (hT, h_p)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_ssd_bf16_x_matches_pallas():
+    """x in bf16: y comes back in bf16, from the same f32 scan.  Both sides
+    round an f32 value within 2e-4 of the other to bf16, so they agree to
+    2e-4 plus one bf16 step (2**-7 relative)."""
+    import jax.numpy as jnp
+    from repro.kernels.ssd import ops as jax_ops
+
+    x, dt, A, Bm, Cm = parity.ssd_inputs(1, 256, 2, 64, 128, seed=5)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    y_p, h_p = jax_ops.ssd(xb, *(jnp.asarray(a) for a in (dt, A, Bm, Cm)), chunk=128)
+    xt = torch.from_numpy(np.asarray(xb).view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    y, hT = ssd(xt, *_t((dt, A, Bm, Cm)), chunk=128)
+    assert y.dtype == torch.bfloat16 and hT.dtype == torch.float32
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(y_p, np.float32),
+                               rtol=2**-7, atol=TOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(h_p), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_ssd_chunked_with_h0_matches_jax(chunk):
+    import jax.numpy as jnp
+    from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+
+    B, L, H, P, N = 2, 256, 3, 64, 32
+    arrays = parity.ssd_inputs(B, L, H, P, N, seed=6)
+    h0 = (np.random.RandomState(9).standard_normal((B, H, P, N)) * 0.5).astype(np.float32)
+    y, hT = ssd_chunked(*_t(arrays), chunk=chunk, h0=torch.from_numpy(h0))
+    y_r, h_r = jax_ssd_chunked(*(jnp.asarray(a) for a in arrays), chunk=chunk,
+                               h0=jnp.asarray(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(h_r), rtol=TOL, atol=TOL)
+
+
+def test_ssd_wrapper_refuses_h0():
+    arrays = _t(parity.ssd_inputs(1, 64, 1, 64, 64))
+    with pytest.raises(ValueError, match="h0"):
+        ssd(*arrays, chunk=64, h0=torch.zeros(1, 1, 64, 64))
+
+
+def test_ssd_decode_step_matches_jax():
+    import jax.numpy as jnp
+    from repro.models.ssm import ssd_decode_step as jax_decode
+
+    rng = np.random.RandomState(8)
+    B, H, P, N = 2, 3, 16, 8
+    x = rng.standard_normal((B, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((2, B, N)) * 0.3).astype(np.float32)
+    h = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    y, h_new = ssd_decode_step(*_t((x, dt, A, Bm, Cm, h)))
+    y_r, h_r = jax_decode(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm, h)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(h_new.numpy(), np.asarray(h_r), rtol=TOL, atol=TOL)
+
+
+def test_decode_steps_replay_the_chunked_scan():
+    """The recurrent step, token by token, gives the chunked scan's outputs
+    and final state (the duality the chunked form rests on)."""
+    B, L, H, P, N = 1, 32, 2, 16, 8
+    x, dt, A, Bm, Cm = _t(parity.ssd_inputs(B, L, H, P, N, seed=12))
+    y, hT = ssd_chunked(x, dt, A, Bm, Cm, chunk=8)
+    h = torch.zeros(B, H, P, N)
+    for t in range(L):
+        y_t, h = ssd_decode_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], h)
+        np.testing.assert_allclose(y_t.numpy(), y[:, t].numpy(), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(h.numpy(), hT.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_segsum_matches_jax():
+    import jax.numpy as jnp
+    from repro.models.ssm import segsum as jax_segsum
+
+    a = np.random.RandomState(13).standard_normal((3, 2, 17)).astype(np.float32)
+    got = segsum(torch.from_numpy(a)).numpy()
+    want = np.asarray(jax_segsum(jnp.asarray(a)))
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "shape,chunk,match",
+    [
+        ((1, 128, 2, 32, 64), 64, "head width"),
+        ((1, 128, 2, 64, 96), 64, "state width"),
+        ((1, 128, 2, 64, 64), 48, "chunk"),
+        ((1, 1024, 1, 64, 64), 1024, "chunk"),
+    ],
+)
+def test_kernel_binding_rejects_what_the_kernel_does_not_take(shape, chunk, match):
+    x, dt, A, Bm, Cm = _t(parity.ssd_inputs(*shape))
+    with pytest.raises(ValueError, match=match):
+        k5.check_inputs(x, dt, A, Bm, Cm, chunk)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k5.check_inputs(x.half(), dt, A, Bm, Cm, 64)
+
+
+def test_kernel_binding_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k5.ssd_fwd(*_t(parity.ssd_inputs(1, 128, 2, 64, 64)), chunk=64)
+
+
+def _wrapper(x, dt, A, Bm, Cm, chunk):
+    return ssd(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def test_parity_check_passes_the_plain_version_and_catches_a_wrong_kernel():
+    """``parity.check_ssd`` (run on the card against K5) accepts a scan equal
+    to the plain version and raises on one that is off by more than the
+    tolerance."""
+    rows = parity.check_ssd(_wrapper, device="cpu")
+    assert len(rows) == 2 * len(parity.SSD_SWEEP) and max(err for _, err in rows) == 0
+
+    def wrong(x, dt, A, Bm, Cm, chunk):
+        y, hT = ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+        return y, hT + 3 * TOL
+
+    with pytest.raises(RuntimeError, match="K5 disagrees"):
+        parity.check_ssd(wrong, device="cpu")
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K5 is a CUDA kernel with no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = ssd.LAUNCHES
+    rows = parity.check_ssd(_wrapper)
+    assert ssd.LAUNCHES == before + len(rows)
