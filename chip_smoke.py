@@ -9,14 +9,18 @@ Phases; any failure exits non-zero and prints no result line:
 1. Device: the card's name and power limit (``nvidia-smi``).  Without CUDA
    the script stops here.  Then every kernel source is compiled with nvcc
    for sm_90a, all at once (one nvcc per source).
-2. Kernels: holds K4 (``kernels/attention/csrc/flash_fwd.cu``) to the plain
-   ``attention_ref`` on the card (max error
-   within 2e-2 in bf16, 2e-5 in f32, the tolerances of the kernel tests) at
-   the olmo-1b attention shape (B=1, H=Hkv=16, Dh=128) for S in
-   {13, 128, 200, 512}, bf16 and f32, causal and not, plus one GQA case
-   (H=16, Hkv=4, Dh=64); then times the kernel, the plain version and
+2. Kernels: K4 (``kernels/attention/csrc/flash_fwd.cu``; bf16 on the
+   tensor cores, f32 on the CUDA cores).  Its library's launch plan is held
+   to ``flash.plan()``; then the kernel is held to the plain
+   ``attention_ref`` on the card (max error within 2e-2 in bf16, 2e-5 in
+   f32, the tolerances of the kernel tests) over ``parity.FLASH_SWEEP``:
+   olmo-1b's attention (B=1, H=Hkv=16, Dh=128) at S in {1, 13, 63, 64, 65,
+   128, 129, 200, 512}, B=2 at S=65, and GQA (H=16, Hkv=4) at Dh=128 and
+   Dh=64, bf16 and f32, causal and not.  Then, at every served prompt
+   length, the device time of the kernel, the plain version and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it) with CUDA events at every served prompt length.
+   it) by CUDA-graph replay, and beside it the eager call time of the
+   kernel and of SDPA (host launch cost included).
 3. Serving: olmo-1b at full width (16 layers, d_model 2048, vocab 50304) with
    random bf16 weights from a seeded generator, through
    ``OrderedServingEngine(max_slots=4, max_len=1024)``: eight requests, both
@@ -82,12 +86,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.launch.timing import graph_time_ms, time_ms  # noqa: E402
+
 # H100 SXM data-sheet peaks (dense): device memory rate, and the operation
 # rate for each input type (bf16 on the tensor cores, f32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
-CHECK_SEQ_LENS = (13, 128, 200, 512)
 SERVED_PROMPT_LENS = (17, 128, 200, 333, 512, 64, 45, 300)
 REPLACES = "src/repro/kernels/attention/flash.py:22 (_flash_kernel; pallas_call at :112)"
 K1_REPLACES = "src/repro/columnar/device.py:127 (_pallas_affine_body; pallas_call at :141)"
@@ -100,45 +104,6 @@ K5_REPLACES = "src/repro/kernels/ssd/ssd.py:24 (_ssd_kernel; pallas_call at :98)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of one call, from CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_time_ms(fn, iters: int = 100, reps: int = 5) -> float:
-    """Device time of one call: ``iters`` calls captured in one CUDA graph
-    and replayed between CUDA events, so no host launch cost sits between
-    the calls (for work shorter than its own launch)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up outside the capture
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
 
 
 def attention_bound(B, S, H, Hkv, Dh, dtype, causal) -> tuple[float, str]:
@@ -185,9 +150,8 @@ def phase_build() -> None:
     log(f"[build] built {', '.join(os.path.relpath(s, ROOT) for s in sources)} in "
         f"{time.perf_counter() - t0:.1f}s")
     for src in sources:
-        for line in _build.BUILD_LOGS.get(str(src), "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {src.name} ptxas: {line.strip()}")
+        for line in _build.ptxas_report(src):
+            log(f"[build]   {src.name} ptxas: {line}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -198,58 +162,45 @@ def _qkv(B, S, H, Hkv, Dh, dtype, gen):
 
 
 def phase_kernels() -> dict:
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import parity
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.attention.ref import attention_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.load(flash.SOURCE)
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(1, S, 16, 16, 128) for S in CHECK_SEQ_LENS] + [(1, 200, 16, 4, 64)]
+    flash._entry()  # builds, loads and holds the library's plan to flash.plan()
+    p = flash.plan(1, 512, 16, 128, torch.bfloat16)
+    log(f"[kernels] K4 launch plan equals flash.plan(); bf16 at S=512 Dh=128: {p.path}, "
+        f"{p.block_rows} rows x {p.key_tile}-key tiles, {p.threads} threads, grid {p.grid}, "
+        f"{p.smem_bytes} B shared memory")
     max_err = 0.0
-    for shape in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            for causal in (True, False):
-                q, k, v = _qkv(*shape, dtype, gen)
-                out = flash.flash_fwd(q, k, v, causal)
-                torch.cuda.synchronize()
-                ref = attention_ref(q, k, v, causal)
-                diff = (out.float() - ref.float()).abs()
-                err = float(diff.max())
-                tol = TOL[dtype]
-                ok = bool((diff <= tol + tol * ref.float().abs()).all()) and err <= tol
-                extra = ""
-                if dtype != torch.float32:  # both against the f32 computation
-                    exact = attention_ref(q.float(), k.float(), v.float(), causal)
-                    extra = (f"; vs f32: kernel {float((out.float() - exact).abs().max()):.3g}, "
-                             f"plain {float((ref.float() - exact).abs().max()):.3g}")
-                log(f"[kernels] K4 B,S,H,Hkv,Dh={shape} {str(dtype)[6:]} causal={causal}: "
-                    f"max|err| {err:.3g} (tol {tol}) {'ok' if ok else 'FAIL'}{extra}")
-                if not ok:
-                    raise RuntimeError(f"K4 disagrees with attention_ref at {shape} {dtype} causal={causal}")
-                max_err = max(max_err, err)
+    for line, err in parity.check_flash(flash.flash_fwd):
+        log(f"[kernels] K4 {line}")
+        max_err = max(max_err, err)
 
     # times at the served shapes: olmo-1b prefill, bf16, causal
+    gen = torch.Generator(device="cuda").manual_seed(0)
     H, Dh, dtype = 16, 128, torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for S in sorted(set(SERVED_PROMPT_LENS)):
         q, k, v = _qkv(1, S, H, H, Dh, dtype, gen)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        ms = time_ms(lambda: flash.flash_fwd(q, k, v, True))
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, True))
-        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        kernel = lambda: flash.flash_fwd(q, k, v, True)  # noqa: E731
+        plain = lambda: attention_ref(q, k, v, True)  # noqa: E731
+        library = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
+        ms, plain_ms, library_ms = (graph_time_ms(f) for f in (kernel, plain, library))
+        call_ms, library_call_ms = (time_ms(f, iters=200) for f in (kernel, library))
         bound_ms, bound_by = attention_bound(1, S, H, H, Dh, dtype, True)
         rows[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[kernels] K4 time S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"share of bound {bound_ms / ms:.4f}")
+        log(f"[kernels] K4 S={S} device time (graph replay): kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), share of bound {bound_ms / ms:.4f}; eager call: kernel "
+            f"{call_ms:.5f} ms, sdpa {library_call_ms:.5f} ms")
     top = rows[max(rows)]
     log(f"[kernels] the kernels line reports K4 at B=1 S={max(rows)} H=Hkv=16 Dh=128 bf16 "
-        "causal (the largest served prompt)")
+        "causal (the largest served prompt), graph-replay times")
     return {
         "name": "flash_fwd",
         "route": "cuda",

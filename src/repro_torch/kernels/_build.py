@@ -83,6 +83,22 @@ def build(source: Path) -> Path:
     return out
 
 
+def ptxas_report(source: Path) -> list[str]:
+    """One line per kernel of ``source``'s last build in this process (its
+    mangled name, registers and spills) and ptxas's warnings."""
+    lines, name, frame = [], "?", ""
+    for line in BUILD_LOGS.get(str(source), "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            frame = line.strip()
+        elif "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {frame}")
+        elif "ptxas" in line and "warning" in line:
+            lines.append(line.strip())
+    return lines
+
+
 def load(source: Path) -> ctypes.CDLL:
     """Build (if needed) and load ``source``'s shared library, once per process."""
     key = str(source)

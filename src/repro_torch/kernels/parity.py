@@ -1,10 +1,10 @@
-"""Kernels K2, K3 and K5 held to their plain versions on the same inputs.
+"""Kernels K2, K3, K4 and K5 held to their plain versions on the same inputs.
 
-``check_reorder``, ``check_dispatch`` and ``check_ssd`` run one sweep each
-through a kernel call given by the caller (the public wrapper or the
-binding) and through the plain version, and raise ``RuntimeError`` at the
-first disagreement: K2 and K3 bit for bit (tolerance 0), K5 within
-:data:`SSD_TOL`.  ``chip_smoke.py`` and the ``cuda``-marked tests run them on
+``check_reorder``, ``check_dispatch``, ``check_flash`` and ``check_ssd`` run
+one sweep each through a kernel call given by the caller (the public wrapper
+or the binding) and through the plain version, and raise ``RuntimeError`` at
+the first disagreement: K2 and K3 bit for bit (tolerance 0), K4 within
+:data:`FLASH_TOL`, K5 within :data:`SSD_TOL`.  ``chip_smoke.py`` and the ``cuda``-marked tests run them on
 the card; the CPU tests share the input makers below.  Inputs are drawn with
 numpy from a seed.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .attention.ref import attention_ref
 from .dispatch.ref import dispatch_ref
 from .reorder.ref import ReorderState, commit_ref, init_state
 from .ssd.ref import ssd_scan_ref
@@ -28,6 +29,12 @@ DISPATCH_SWEEP = ((64, 8, 16, 128), (128, 4, 8, 128), (32, 16, 4, 256), (1000, 7
 SSD_SWEEP = ((1, 128, 2, 64, 128, 64), (2, 256, 4, 64, 128, 128), (1, 512, 2, 128, 64, 128),
              (1, 512, 2, 64, 128, 256), (1, 300, 3, 64, 64, 100), (2, 128, 1, 128, 128, 32))
 SSD_TOL = 2e-4  # tests/test_kernels.py:153-154
+# (B, S, H, Hkv, Dh): olmo-1b's attention (H = Hkv = 16, Dh = 128) at the
+# edges of K4's 64-row tiles and at the longest served prompt, two ragged
+# batches, and GQA at both head widths
+FLASH_SWEEP = tuple((1, S, 16, 16, 128) for S in (1, 13, 63, 64, 65, 128, 129, 200, 512)) + (
+    (2, 65, 16, 16, 128), (1, 200, 16, 4, 128), (1, 200, 16, 4, 64))
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -133,6 +140,45 @@ def check_dispatch(dispatch_fn, device="cuda", seed: int = 1) -> int:
                 raise RuntimeError(f"K3 disagrees with dispatch_ref at T,P,C,W={T, P, C, W} {dtype}")
             cases += 1
     return cases
+
+
+def flash_inputs(B, S, H, Hkv, Dh, seed: int = 2):
+    """q, k, v standard normal, as float32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh)))
+
+
+def check_flash(flash_fn, shapes=FLASH_SWEEP, device="cuda",
+                seed: int = 2) -> list[tuple[str, float]]:
+    """``shapes`` (B, S, H, Hkv, Dh) in f32 and bf16, causal and not, through
+    ``flash_fn(q, k, v, causal)`` and ``attention_ref``: every element within
+    :data:`FLASH_TOL` + the same share of |ref|, and the largest error within
+    :data:`FLASH_TOL`.  Returns (line, max |err|) per case; the line gives
+    the error and, for bf16, both sides' error against the f32 computation."""
+    rows = []
+    for shape in shapes:
+        qkv = [torch.from_numpy(a).to(device) for a in flash_inputs(*shape, seed=seed)]
+        for dtype in DTYPES:
+            q, k, v = (t.to(dtype) for t in qkv)
+            for causal in (True, False):
+                out = flash_fn(q, k, v, causal)
+                ref = attention_ref(q, k, v, causal)
+                tol = FLASH_TOL[dtype]
+                diff = (out.float() - ref.float()).abs()
+                err = float(diff.max())
+                label = f"B,S,H,Hkv,Dh={shape} {str(dtype)[6:]} causal={causal}"
+                if out.shape != ref.shape or out.dtype != dtype or err > tol or not bool(
+                        (diff <= tol + tol * ref.float().abs()).all()):
+                    raise RuntimeError(f"K4 disagrees with attention_ref at {label}: "
+                                       f"max|err| {err:.3g} (tol {tol})")
+                line = f"{label}: max|err| {err:.3g} (tol {tol}) ok"
+                if dtype != torch.float32:
+                    exact = attention_ref(*(t.float() for t in (q, k, v)), causal)
+                    line += (f"; vs f32: kernel {float((out.float() - exact).abs().max()):.3g}, "
+                             f"plain {float((ref.float() - exact).abs().max()):.3g}")
+                rows.append((line, err))
+    return rows
 
 
 def ssd_close(got, want, rtol: float) -> tuple[bool, float]:

@@ -154,3 +154,29 @@ def test_kernel_wrappers_raise_off_the_cpu_and_never_fall_back(name):
     with pytest.raises(ValueError, match="launches a CUDA kernel; tensors are on meta"):
         call()
     assert wrapper.LAUNCHES == before
+
+
+def test_ptxas_report_gives_one_line_per_kernel():
+    from repro_torch.kernels import _build
+
+    src = pathlib.Path("k.cu")
+    _build.BUILD_LOGS[str(src)] = "\n".join([
+        "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1av",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 149 registers, used 2 barriers",
+        "ptxas warning : wgmma serialization",
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers",
+    ])
+    try:
+        assert _build.ptxas_report(src) == [
+            "_Z1av: Used 149 registers, used 2 barriers; "
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "ptxas warning : wgmma serialization",
+            "_Z1bv: Used 80 registers, used 1 barriers; "
+            "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        ]
+    finally:
+        del _build.BUILD_LOGS[str(src)]
