@@ -43,16 +43,22 @@ Phases; any failure exits non-zero and prints no result line:
 Phases 6-8 hold each kernel to its plain version with the sweeps of
 ``repro_torch.kernels.parity``, which the ``cuda``-marked tests run too.
 
-6. K2 (``kernels/reorder/csrc/reorder.cu``, the reorder-commit): held to
-   ``commit_ref`` on the card bit for bit (tolerance 0) over multi-commit
-   drains (S in {8, 64, 32, 1000} x W in {128, 256, 3}, f32 and bf16) with
-   -1 padding and refused serials (stale and past the window); then one
-   ordering point at a real size through ``ops.commit``: a ring of 16,384
-   slots x 128 f32 takes 1,048,576 serials, shuffled within blocks of 8,192
-   so that all are accepted, in commits of 512 with 1 entry in 16 padded
-   -1.  The emitted rows must equal the payload table in serial order, bit
-   for bit, and K2 launched 3 x commits times.  One commit is timed by
-   graph replay, with the plain version beside it.
+6. K2 (``kernels/reorder/csrc/reorder.cu``, the reorder-commit in one
+   launch): held to ``commit_ref`` on the card bit for bit (tolerance 0)
+   over multi-commit drains (S in {8, 64, 32, 1000} x W in {128, 256, 3},
+   f32 and bf16) with -1 padding and refused serials (stale and past the
+   window), and over ``parity.REORDER_CASES`` (a 16,384 x 128 ring whose
+   counts cross the kernel's tiles and fill the whole ring, K > S, a serial
+   re-sent while present, next near 2**31 - 1 and past the int32 wrap);
+   then one ordering point at a real size through ``ops.commit``: a ring of
+   16,384 slots x 128 f32 takes 1,048,576 serials, shuffled within blocks
+   of 8,192 so that all are accepted, in commits of 512 with 1 entry in 16
+   padded -1.  The emitted rows must equal the payload table in serial
+   order, bit for bit, and K2 launched once per commit.  One commit is
+   timed by graph replay, with the plain version beside it.  Where the
+   parent commit's three-launch K2 is unpacked under ``build/parent/``
+   (``git archive``), it is timed beside the new one in turns (A B B A),
+   and each of its three launches alone (``launch/bench_reorder.py``).
 7. K3 (``kernels/dispatch/csrc/dispatch.cu``, the hybrid-queue dispatch):
    held to ``dispatch_ref`` bit for bit on a sweep of six shapes with
    Zipf-skewed ids, -1s and ids past P, then through
@@ -408,6 +414,8 @@ def phase_stream() -> int:
 
 # ---------------------------------------------------------------- phase 6
 K2_RING, K2_WIDTH, K2_SERIALS, K2_BATCH = 16384, 128, 1 << 20, 512
+K2_PARENT = os.path.join(ROOT, "build", "parent", "src", "repro_torch", "kernels", "reorder",
+                         "csrc", "reorder.cu")
 
 
 def commit_bound(S, W, itemsize, K, accepted, count, fresh) -> float:
@@ -428,10 +436,12 @@ def phase_k2() -> dict:
     from repro_torch.kernels.reorder import reorder as k2
     from repro_torch.kernels.reorder.ops import commit
     from repro_torch.kernels.reorder.ref import ReorderState, commit_ref, init_state
+    from repro_torch.launch import bench_reorder
 
     checks = parity.check_reorder(k2.commit_fwd)
-    log(f"[k2] {checks} commits (S x W in {parity.REORDER_SWEEP}, f32 and bf16, -1 padding, "
-        "stale and past-window serials refused) equal commit_ref bit for bit (tolerance 0)")
+    log(f"[k2] {checks} commits (drains over S x W in {parity.REORDER_SWEEP}, f32 and bf16, -1 "
+        "padding, stale and past-window serials refused; and the cases "
+        f"{list(parity.REORDER_CASES)}) equal commit_ref bit for bit (tolerance 0)")
 
     # one ordering point at a real size, through the public wrapper
     S, W, N, K = K2_RING, K2_WIDTH, K2_SERIALS, K2_BATCH
@@ -468,27 +478,18 @@ def phase_k2() -> dict:
                            "refused or accepted wrongly")
     if not parity.bits_equal(out[:N], table):
         raise RuntimeError("K2 drain: the emitted rows differ from the payload table")
-    if launches != k2.LAUNCHES_PER_CALL * commits:
+    if launches != commits or k2.LAUNCHES_PER_CALL != 1:
         raise RuntimeError(f"K2 launched {launches} times for {commits} commits")
     log(f"[k2] drain: {N} serials through a {S} x {W} f32 ring in {commits} commits of {K} "
         f"({per} serials, {K - per} pads) in {wall:.3f}s; emitted rows equal the payload table "
         f"in serial order bit for bit; K2 launches on the main path: {launches} = "
-        f"{k2.LAUNCHES_PER_CALL} x {commits} commits")
+        f"{commits} commits, one launch each")
     del table, order, entries, keep, out
 
     # one commit timed by graph replay: `per` serials fill the head of a ring
     # in which a quarter of the window is already waiting, past a gap; from
     # the second replay on, each commit accepts the `per` and emits them
-    start = 5 * S + 123
-    state = init_state(S, W, device="cuda", start=start)
-    gap = per + 1
-    waiting = (start + gap + torch.randperm(S - gap, generator=gen, device="cuda")[: S // 4]) % S
-    state.present[waiting] = True
-    state.buf.copy_(torch.randn(S, W, generator=gen, device="cuda"))
-    serials = torch.full((K,), -1, dtype=torch.int32, device="cuda")
-    slots = torch.randperm(K, generator=gen, device="cuda")[:per]
-    serials[slots] = start + torch.randperm(per, generator=gen, device="cuda").to(torch.int32)
-    payloads = torch.randn(K, W, generator=gen, device="cuda")
+    state, serials, payloads, per = bench_reorder.timing_commit(gen)
     k2.commit_fwd(state, serials, payloads)
     _, em, cnt, acc = k2.commit_fwd(state, serials, payloads)
     ref = commit_ref(ReorderState(*(t.clone() for t in state)), serials, payloads)
@@ -500,6 +501,13 @@ def phase_k2() -> dict:
     log(f"[k2] one commit at S={S} W={W} f32, K={K} ({per} accepted and emitted), device time "
         f"(graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
         f"(bytes), share of bound {bound_ms / ms:.4f}")
+    if os.path.exists(K2_PARENT):
+        log(f"[k2] against the parent's three-launch K2 ({os.path.relpath(K2_PARENT, ROOT)}):")
+        for line in bench_reorder.report(bench_reorder.compare(["package", K2_PARENT])):
+            log(f"[k2] {line}")
+    else:
+        log(f"[k2] the parent's three-launch K2 is not unpacked at "
+            f"{os.path.relpath(K2_PARENT, ROOT)}: not timed beside the new one")
     return {
         "name": "reorder_commit", "route": "cuda",
         "source": os.path.relpath(k2.SOURCE, ROOT), "replaces": K2_REPLACES,

@@ -1,3 +1,4 @@
+# Port copy of src/repro/core/reorder.py (the port imports nothing of the JAX package): keep the two in sync by hand.
 """Output-reordering schemes (paper §3) — the in-thread serial-number
 protocol.
 
@@ -31,12 +32,11 @@ parked serial is *claimed* under the lock before the re-send, so every
 serial has exactly one sender — a duplicate send could re-populate a
 drained slot and corrupt the sequence one window later.
 
-This module is the port's own copy of ``repro.core.reorder`` (the port
-imports nothing of the JAX package).  The cross-process mirror of fig. 4
-lives in :mod:`.shm` (``ShmReorderRing``, also a copy): same entry condition
-and hole-punching, plus span slots, an in-band EOF marker, and the
-crash/replay rules the staged process backend (:mod:`.procrun`) builds on.
-Keep all the copies in sync when evolving the protocol.
+The cross-process mirror of fig. 4 lives in :mod:`.shm`
+(``ShmReorderRing``): same entry condition and hole-punching, plus span
+slots (one publish covers a contiguous micro-batch), an in-band EOF marker,
+and the crash/replay rules the staged process backend (:mod:`.procrun`)
+builds on.  Keep the two in sync when evolving the protocol.
 """
 from __future__ import annotations
 

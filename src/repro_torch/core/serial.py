@@ -1,3 +1,4 @@
+# Port copy of src/repro/core/serial.py (the port imports nothing of the JAX package): keep the two in sync by hand.
 """Atomic primitives and serial-number assignment (paper §3).
 
 Python cannot express lock-free CAS loops, but under the GIL a small lock-guarded

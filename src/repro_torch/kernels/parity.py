@@ -19,7 +19,10 @@ from .reorder.ref import ReorderState, commit_ref, init_state
 from .ssd.ref import ssd_scan_ref
 
 COMMIT_K = 8  # entries per commit in the reorder sweep, as the reference tests
-REORDER_SWEEP = ((8, 128), (64, 128), (32, 256), (1000, 3))  # (S, W)
+REORDER_SWEEP = ((8, 128), (64, 128), (32, 256), (1000, 3))  # (S, W) of the drains
+# commit sequences at the edges of K2's one-launch design (reorder_cases)
+REORDER_CASES = ("tiles and a full ring", "int32 window wrap", "wrapped states")
+INT32_MAX = 2**31 - 1
 # (T, P, C, W): the reference tests' shapes, then odd widths, a skewed keyed
 # batch that overflows, and one slot per partition at the largest P
 DISPATCH_SWEEP = ((64, 8, 16, 128), (128, 4, 8, 128), (32, 16, 4, 256), (1000, 7, 50, 3),
@@ -61,6 +64,64 @@ def commit_batches(rng, size: int, total: int, start: int = 0, k: int = COMMIT_K
         yield np.asarray(entries, np.int32)[rng.permutation(k)]
 
 
+def _entries(rng, serials, pads: int = 0) -> np.ndarray:
+    """``serials`` and ``pads`` -1s, shuffled, as an int32 batch."""
+    out = np.concatenate([np.asarray(serials, np.int64), np.full(pads, -1)])
+    return out[rng.permutation(len(out))].astype(np.int32)
+
+
+def reorder_cases(rng):
+    """The commit sequences of :data:`REORDER_CASES`, each as (name, S, W,
+    start state, batches, expected counts).  The start state is (next,
+    present) with present None for an empty ring, or a bool array (the ring's
+    rows are then random); a batch is an int32 array of serials.
+
+    - tiles and a full ring, S = 16,384, W = 128 (several blocks and count
+      tiles of the kernel): 5,000 serials wait behind a gap; the gap, 100 new
+      serials and 17 of the waiting ones sent again (their new payloads must
+      come out) give a count of 5,101, across two tile boundaries; then
+      S - 1 serials and refused ones (K > S) wait behind the next gap, which
+      the last commit fills: count == S, the whole ring.
+    - int32 window wrap, S = 1,000, W = 3, next near 2**31 - 1: the run
+      advances until next + S wraps int32; from then on the window accepts
+      nothing.
+    - wrapped states, S = 1,000, W = 3: rings set up directly, with next
+      near 2**31 - 1 (a run whose emitted rows read slots past the int32
+      wrap, and a full one) and next just past the wrap, at INT32_MIN + 5
+      (where the distance of a slot from next wraps too).
+    """
+    S = 16384
+    tiles = [
+        _entries(rng, list(range(1, 5001)) + [S + 7, S + 9000], pads=10),
+        _entries(rng, [0] + list(range(5001, 5101)) + list(rng.choice(np.arange(1, 5001), 17,
+                                                                      replace=False))
+                 + [S + 5101 + 3], pads=3),
+        _entries(rng, list(range(5102, 5101 + S)) + [100, 5100, 5101 + S, 5101 + S + 50], pads=5),
+        _entries(rng, [5101, 3, 5101 + 2 * S]),
+    ]
+    yield "tiles and a full ring", S, 128, (0, None), tiles, [0, 5101, 0, S]
+
+    S, start = 1000, INT32_MAX - 1500
+    wrap = [
+        _entries(rng, [start + i for i in range(1, 1000) if i != 400], pads=2),
+        _entries(rng, [start, start - 1]),
+        _entries(rng, [start + 400] + [start + i for i in range(1000, 1200) if i != 1100]),
+        _entries(rng, [start + 1100, INT32_MAX, INT32_MAX - 1, start + 1101], pads=1),
+    ]
+    yield "int32 window wrap", S, 3, (start, None), wrap, [0, 400, 700, 0]
+
+    present = np.ones(S, bool)
+    present[(INT32_MAX - 10 + 700) % S] = False  # the gap at distance 700
+    probe = [_entries(rng, [INT32_MAX - 10, 5, INT32_MAX], pads=1)]
+    yield "wrapped states", S, 3, (INT32_MAX - 10, present), probe, [700]
+    yield "wrapped states", S, 3, (INT32_MAX - 10, np.ones(S, bool)), probe, [S]
+    past = -(2**31) + 5
+    present = rng.rand(S) < 0.9
+    want = min((i - past) % S if -(2**31) <= i - past < 2**31 else (i - past - 2**32) % S
+               for i in np.flatnonzero(~present).tolist())
+    yield "wrapped states", S, 3, (past, present), [_entries(rng, [0, 1, past], pads=1)], [want]
+
+
 def zipf_ids(rng, T: int, P: int, s: float = 1.1, invalid: float = 0.05) -> np.ndarray:
     """Partition ids with Zipf(s) skew over P partitions (partition 0 the
     hottest), and a share of -1s."""
@@ -93,11 +154,29 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
+def _commit_both(commit_fn, st, st_ref, serials, pay, label):
+    """One commit through ``commit_fn`` and ``commit_ref``; raises unless
+    every output and the ring are equal bit for bit."""
+    st, em, cnt, acc = commit_fn(st, serials, pay)
+    st_ref, em_r, cnt_r, acc_r = commit_ref(st_ref, serials, pay)
+    same = (int(cnt) == int(cnt_r) and int(st.next) == int(st_ref.next)
+            and torch.equal(acc, acc_r) and torch.equal(st.present, st_ref.present)
+            and bits_equal(em, em_r) and bits_equal(st.buf, st_ref.buf))
+    if not same:
+        shown = serials.tolist()
+        shown = shown if len(shown) <= 16 else f"{shown[:16]}... ({len(shown)} entries)"
+        raise RuntimeError(f"K2 disagrees with commit_ref: {label}, serials {shown}")
+    return st, st_ref, em, int(cnt), acc
+
+
 def check_reorder(commit_fn, device="cuda", seed: int = 0) -> int:
-    """Multi-commit drains of 3 S serials over :data:`REORDER_SWEEP`, f32 and
-    bf16, with -1 padding and refused serials, through ``commit_fn(state,
-    serials, payloads)`` and ``commit_ref``; every output and the ring equal
-    bit for bit.  Returns the number of commits."""
+    """Multi-commit drains of 3 S serials over :data:`REORDER_SWEEP`, then
+    the sequences of :data:`REORDER_CASES`, f32 and bf16, with -1 padding
+    and refused serials, through ``commit_fn(state, serials, payloads)`` and
+    ``commit_ref``; every output and the ring equal bit for bit, and each
+    case's counts are the ones it was built for (in the tiles case, the
+    emitted rows are each serial's latest payload, in serial order).
+    Returns the number of commits."""
     rng = np.random.RandomState(seed)
     commits = 0
     for size, width in REORDER_SWEEP:
@@ -107,17 +186,34 @@ def check_reorder(commit_fn, device="cuda", seed: int = 0) -> int:
             for serials in commit_batches(rng, size, 3 * size):
                 s = torch.from_numpy(serials).to(device)
                 pay = torch.from_numpy(rng.standard_normal((len(serials), width))).to(device, dtype)
-                st, em, cnt, acc = commit_fn(st, s, pay)
-                st_ref, em_r, cnt_r, acc_r = commit_ref(st_ref, s, pay)
-                same = (int(cnt) == int(cnt_r) and int(st.next) == int(st_ref.next)
-                        and torch.equal(acc, acc_r) and torch.equal(st.present, st_ref.present)
-                        and bits_equal(em, em_r) and bits_equal(st.buf, st_ref.buf))
-                if not same:
-                    raise RuntimeError(f"K2 disagrees with commit_ref: S={size} W={width} {dtype}, "
-                                       f"serials {serials.tolist()}")
+                st, st_ref, *_ = _commit_both(commit_fn, st, st_ref, s, pay,
+                                              f"S={size} W={width} {dtype}")
                 commits += 1
             if int(st.next) != 3 * size or bool(st.present.any()):
                 raise RuntimeError(f"K2 sweep S={size} W={width} {dtype} did not drain")
+    for dtype in DTYPES:
+        for name, size, width, (start, present), batches, counts in reorder_cases(rng):
+            label = f"{name}, S={size} W={width} {dtype}"
+            st = init_state(size, width, dtype, start=start, device=device)
+            if present is not None:
+                st.present.copy_(torch.from_numpy(present))
+                st.buf.copy_(torch.from_numpy(rng.standard_normal((size, width))))
+            st_ref = ReorderState(*(t.clone() for t in st))
+            latest, emitted, got = {}, [], []
+            for serials in batches:
+                s = torch.from_numpy(serials).to(device)
+                pay = torch.from_numpy(rng.standard_normal((len(serials), width))).to(device, dtype)
+                st, st_ref, em, cnt, acc = _commit_both(commit_fn, st, st_ref, s, pay, label)
+                for k in torch.nonzero(acc).flatten().tolist():
+                    latest[int(serials[k])] = pay[k]
+                emitted += list(em[:cnt])
+                got.append(cnt)
+                commits += 1
+            if got != counts:
+                raise RuntimeError(f"K2 sweep {label}: counts {got}, built for {counts}")
+            if present is None and start == 0 and not all(
+                    bits_equal(row, latest[t]) for t, row in enumerate(emitted)):
+                raise RuntimeError(f"K2 sweep {label}: emitted rows are not the latest payloads")
     return commits
 
 

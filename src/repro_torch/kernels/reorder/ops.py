@@ -2,7 +2,7 @@
 ``repro.kernels.reorder.ops``).
 
 CPU tensors go to the plain :func:`~.ref.commit_ref`; CUDA tensors go to
-kernel K2 or raise.  ``commit.LAUNCHES`` counts kernel launches (three per
+kernel K2 or raise.  ``commit.LAUNCHES`` counts kernel launches (one per
 commit on the card), so a run can show that its path went through the
 kernel.
 """

@@ -1,11 +1,16 @@
 """K2: the hand-written Hopper reorder-commit (``csrc/reorder.cu``).
 
 Counterpart of ``repro.kernels.reorder.reorder.commit_pallas``, the Pallas
-TPU kernel.  Three launches on PyTorch's current stream (scatter, count,
-emit), with ``next`` and the count kept on the card, and no synchronisation.
-The ring's ``buf`` and ``present`` are updated in place; ``next`` + count is a
-new scalar.  The CUDA source is compiled at first use (``kernels._build``).
-Anything the kernel does not take raises.
+TPU kernel.  One launch a commit on PyTorch's current stream: every block
+finds the count itself from the old present flags and the batch's serials,
+then scatters its share of the entries and writes its rows of ``emitted``
+(the source's header says how, with no grid-wide barrier).  ``next`` and the
+count stay on the card, and nothing synchronises.  The ring's ``buf`` and
+``present`` are updated in place; ``next`` + count is a new scalar.  The
+kernel keeps one completion ticket per device (a 4-byte counter that each
+commit leaves at 0), so commits on one device must not run at the same time
+on two streams.  The CUDA source is compiled at first use
+(``kernels._build``).  Anything the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -18,18 +23,28 @@ from .. import _build
 from .ref import ReorderState
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "reorder.cu"
-LAUNCHES_PER_CALL = 3  # commit_launches_per_call() in the source
-MAX_SLOTS = 2**31 - 1
+LAUNCHES_PER_CALL = 1  # commit_launches_per_call() in the source
+MAX_SLOTS = 2**30  # commit_max_slots()
 
 
 # serials, K, payloads, buf, present, next, S, row_bytes, accepted, emitted,
-# count, next_out
+# count, next_out, ticket
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 )
-_CONSTANTS = (("commit_launches_per_call", LAUNCHES_PER_CALL),)
+_CONSTANTS = (("commit_launches_per_call", LAUNCHES_PER_CALL), ("commit_max_slots", MAX_SLOTS))
+_TICKETS: dict[torch.device, torch.Tensor] = {}  # device -> the kernel's completion counter
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The device's completion counter, made (zeroed) at its first commit."""
+    if device not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("commit K2 once on this device before capturing it in a CUDA graph")
+        _TICKETS[device] = torch.zeros((), dtype=torch.int32, device=device)
+    return _TICKETS[device]
 
 
 def check_inputs(state: ReorderState, serials: torch.Tensor, payloads: torch.Tensor) -> None:
@@ -76,6 +91,6 @@ def commit_fwd(state: ReorderState, serials: torch.Tensor, payloads: torch.Tenso
         _build.entry(SOURCE, "commit_launch", _ARGTYPES, _CONSTANTS), dev,
         serials.data_ptr(), K, payloads.data_ptr(), buf.data_ptr(), present.data_ptr(),
         nxt.data_ptr(), S, W * buf.element_size(), accepted.data_ptr(),
-        emitted.data_ptr(), count.data_ptr(), next_out.data_ptr(),
+        emitted.data_ptr(), count.data_ptr(), next_out.data_ptr(), _ticket(dev).data_ptr(),
     )
     return ReorderState(buf, present, next_out), emitted, count, accepted

@@ -5,19 +5,22 @@ The cases cover every column type with int and float parameters where the
 reference defines the result (no float-to-int cast out of range): integer
 wraparound, the float64 promotion of an integer column times a float, and
 NumPy's separate roundings of the product and the sum.  K1 itself runs only
-on the card (``cuda`` marker), held to the plain version there.
+on the card (``cuda`` marker), held to the plain version there.  The
+reference runs in a spawned child (``torch_jaxref``), never in this process.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.columnar.device import _np_affine
+from torch_jaxref import Reference
 from repro_torch.columnar.device import make_kernel
 from repro_torch.kernels.affine import affine as k1
 from repro_torch.kernels.affine.ops import affine_staged
 from repro_torch.kernels.affine.ref import ALIGN, Layout, affine_ref, affine_staged_ref
 
+JAX = Reference()
+_jax_child = JAX.fixture()
 NP = {"i8": np.int64, "i4": np.int32, "f8": np.float64, "f4": np.float32}
 
 
@@ -33,8 +36,7 @@ def _column(code: str, n: int, seed: int, float_param: bool) -> np.ndarray:
 
 
 def _np_ref(x: np.ndarray, a, b) -> np.ndarray:
-    (out,) = _np_affine((("a", a), ("b", b)))(x)
-    return out
+    return JAX("np_affine", x, a, b)
 
 
 def _bits(t) -> np.ndarray:

@@ -3,15 +3,17 @@ the JAX package's ``dispatch_ref`` (bit for bit) and its Pallas
 ``dispatch_pallas`` in interpret mode (1e-5, the tolerance of
 ``tests/test_kernels.py``).
 
-Inputs are made with numpy from a seed and handed to both frameworks; jax is
-imported only inside the tests.  On the CPU the wrapper takes the plain
-version; K3 itself runs only on the card (``cuda`` marker).
+Inputs are made with numpy from a seed and handed to both frameworks; the
+JAX side runs in a spawned child (``torch_jaxref``), never in this process.
+On the CPU the wrapper takes the plain version; K3 itself runs only on the
+card (``cuda`` marker).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_jaxref import Reference, bf16
 from repro_torch.kernels import parity
 from repro_torch.kernels.dispatch import dispatch as k3
 from repro_torch.kernels.dispatch.ops import dispatch
@@ -19,6 +21,8 @@ from repro_torch.kernels.dispatch.ref import dispatch_ref
 from repro_torch.models.convert import tensor_from_numpy
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX = Reference()
+_jax_child = JAX.fixture()
 
 
 def _bits(a) -> np.ndarray:
@@ -30,28 +34,22 @@ def _bits(a) -> np.ndarray:
 
 
 def _payloads(rng, T, W, dtype):
-    import jax.numpy as jnp
-
-    return np.array(jnp.asarray(rng.standard_normal((T, W)), getattr(jnp, dtype)))
+    x = rng.standard_normal((T, W))
+    return bf16(x) if dtype == "bfloat16" else x.astype(np.float32)
 
 
 def _check_against_jax(ids, payloads, P, C, pallas=True):
-    import jax.numpy as jnp
-    from repro.kernels.dispatch import ops as jax_ops
-    from repro.kernels.dispatch.ref import dispatch_ref as jax_dispatch_ref
-
     before = dispatch.LAUNCHES
     buf, counts, dest = dispatch(torch.from_numpy(ids), tensor_from_numpy(payloads, "cpu"), P, C)
     assert dispatch.LAUNCHES == before  # the CPU path launches nothing
     assert buf.shape == (P, C, payloads.shape[1]) and buf.dtype == tensor_from_numpy(payloads, "cpu").dtype
     assert counts.dtype == torch.int32 and dest.dtype == torch.int32
-    jids, jpay = jnp.asarray(ids), jnp.asarray(payloads)
-    buf_r, counts_r, dest_r = jax_dispatch_ref(jids, jpay, P, C)
+    (buf_r, counts_r, dest_r), want_p = JAX("dispatch", ids, payloads, P, C, pallas=pallas)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_r))
     np.testing.assert_array_equal(dest.numpy(), np.asarray(dest_r))
     np.testing.assert_array_equal(_bits(buf), _bits(buf_r))
     if pallas:
-        buf_p, counts_p, dest_p = jax_ops.dispatch(jids, jpay, P, C, use_kernel=True)
+        buf_p, counts_p, dest_p = want_p
         np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_p))
         np.testing.assert_array_equal(dest.numpy(), np.asarray(dest_p))
         np.testing.assert_allclose(buf.float().numpy(), np.asarray(buf_p, np.float32),
@@ -115,9 +113,6 @@ def test_ids_past_the_partitions_are_invalid():
     """An id at or past P counts nowhere and fills no row, as in the JAX
     reference; its dest is -1, where the JAX reference gives an index past
     the end of the buffers.  The other tuples rank as if it were absent."""
-    import jax.numpy as jnp
-    from repro.kernels.dispatch.ref import dispatch_ref as jax_dispatch_ref
-
     rng = np.random.RandomState(5)
     T, P, C, W = 64, 4, 12, 8
     ids = rng.randint(-1, P, T).astype(np.int32)
@@ -125,7 +120,7 @@ def test_ids_past_the_partitions_are_invalid():
     ids[past] = P + rng.randint(0, 3, int(past.sum()))
     payloads = rng.standard_normal((T, W)).astype(np.float32)
     buf, counts, dest = dispatch(torch.from_numpy(ids), torch.from_numpy(payloads), P, C)
-    buf_r, counts_r, dest_r = jax_dispatch_ref(jnp.asarray(ids), jnp.asarray(payloads), P, C)
+    (buf_r, counts_r, dest_r), _ = JAX("dispatch", ids, payloads, P, C)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_r))
     np.testing.assert_array_equal(_bits(buf), _bits(buf_r))
     dest, dest_r = dest.numpy(), np.asarray(dest_r)

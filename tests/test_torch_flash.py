@@ -1,8 +1,9 @@
 """Port parity: flash attention (K4's wrapper and plain version) against the
 JAX package's ``attention_ref``.
 
-Inputs are made with numpy from a seed and handed to both frameworks.  K4
-itself runs only on the card (``cuda`` marker); on the CPU the wrapper takes
+Inputs are made with numpy from a seed and handed to both frameworks; the
+JAX side runs in a spawned child (``torch_jaxref``), never in this process.
+K4 itself runs only on the card (``cuda`` marker); on the CPU the wrapper takes
 the plain ``attention_ref``, and a tiled emulation of the bf16 kernel's
 arithmetic (below) stands in for the kernel's design.  The Pallas kernel is
 not the reference here: it raises on the installed jax (ROADMAP R1).
@@ -13,13 +14,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp
 
-from repro.kernels.attention.ref import attention_ref as jax_attention_ref
+from torch_jaxref import Reference
 from repro_torch.kernels import parity
 from repro_torch.kernels.attention import flash
-from repro_torch.kernels.attention.ops import flash_attention
+from repro_torch.kernels.attention.ops import FlashAttention, flash_attention
 from repro_torch.kernels.attention.ref import attention_ref
 
 # (B, S, H, Hkv, Dh): the sweep of tests/test_kernels.py plus ragged S
@@ -34,6 +33,8 @@ SHAPES = [
 # the tolerances of tests/test_kernels.py
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX = Reference()
+_jax_child = JAX.fixture()
 
 
 # the edges of the bf16 kernel's 64-row tiles, in the emulation's sweep
@@ -58,9 +59,7 @@ def _torch(a, dtype, device="cpu"):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_cpu_matches_jax_ref(B, S, H, Hkv, Dh, dtype, causal):
     q, k, v = _inputs(B, S, H, Hkv, Dh)
-    ref = jax_attention_ref(
-        *(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)), causal=causal
-    )
+    ref = JAX("attention", q, k, v, dtype, causal)
     before = flash_attention.LAUNCHES
     out = flash_attention(*(_torch(a, dtype) for a in (q, k, v)), causal=causal)
     assert flash_attention.LAUNCHES == before  # the CPU path launches nothing
@@ -160,7 +159,7 @@ def _emulate_tensor_core_kernel(q, k, v, causal, tile=64, warpgroups=flash.TC_WA
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_design_matches_jax_ref(B, S, H, Hkv, Dh, causal):
     q, k, v = _inputs(B, S, H, Hkv, Dh)
-    ref = jax_attention_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=causal)
+    ref = JAX("attention", q, k, v, "bfloat16", causal)
     out = _emulate_tensor_core_kernel(*(_torch(a, "bfloat16") for a in (q, k, v)), causal)
     if S > 64:  # more than one key tile: the split and the merge are exercised
         one = _emulate_tensor_core_kernel(*(_torch(a, "bfloat16") for a in (q, k, v)), causal,
@@ -226,3 +225,82 @@ def test_check_flash_sweep_on_cpu():
         return out
     with pytest.raises(RuntimeError, match="disagrees"):
         parity.check_flash(off, shapes[:1], device="cpu")
+
+
+# ---------------------------------------------------------------- gradients (K4's Function)
+# (B, S, H, Hkv, Dh): GQA with Hkv < H, a ragged S, and the head widths of K4
+GRAD_SHAPES = [(1, 13, 4, 2, 64), (2, 65, 4, 1, 128)]
+
+
+def _grads(fn, q, k, v, g, causal):
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v, causal)
+    out.backward(g)
+    return out, (q.grad, k.grad, v.grad)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,Dh", GRAD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_gradients_match_plain_and_jax_vjp(B, S, H, Hkv, Dh, causal, monkeypatch):
+    """K4's autograd Function, with the plain forward swapped in for the
+    kernel (which runs only on the card): its q, k, v gradients equal those
+    of ``attention_ref`` under autograd, and JAX's ``jax.vjp`` of the
+    reference ``attention_ref`` (the reference's ``custom_vjp`` backward)
+    within 2e-5 in f32."""
+    monkeypatch.setattr(FlashAttention, "forward_fn", staticmethod(attention_ref))
+    q, k, v = _inputs(B, S, H, Hkv, Dh)
+    g = np.random.RandomState(3).standard_normal((B, S, H, Dh)).astype(np.float32)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    out, got = _grads(FlashAttention.apply, tq, tk, tv, tg, causal)
+    assert out.grad_fn is not None
+    _, plain = _grads(attention_ref, tq, tk, tv, tg, causal)
+    want = JAX("attention_vjp", q, k, v, g, causal)
+    for a, b, c in zip(got, plain, want):
+        assert a.shape == b.shape and torch.equal(a, b)  # the same recompute
+        np.testing.assert_allclose(a.numpy(), c, rtol=TOL["float32"], atol=TOL["float32"])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_gradients_on_card():
+    """On the card ``flash_attention`` runs K4 and its output carries a
+    ``grad_fn``: the kernel route's q, k, v gradients equal the plain
+    route's within 2e-2 (bf16) and 2e-5 (f32), and ``forward_train`` gives
+    every attention weight a gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K4 is a CUDA kernel with no CPU mode)")
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for B, S, H, Hkv, Dh in GRAD_SHAPES:
+        q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(B, S, H, Hkv, Dh))
+        g = torch.from_numpy(np.random.RandomState(3).standard_normal((B, S, H, Dh))
+                             .astype(np.float32)).cuda()
+        for dtype, tol in ((torch.float32, TOL["float32"]), (torch.bfloat16, TOL["bfloat16"])):
+            args = [t.to(dtype) for t in (q, k, v, g)]
+            for causal in (True, False):
+                before = flash_attention.LAUNCHES
+                out, got = _grads(flash_attention, *args, causal)
+                assert flash_attention.LAUNCHES == before + 1  # forward launches only
+                assert out.grad_fn is not None
+                _, want = _grads(attention_ref, *args, causal)
+                for a, b in zip(got, want):
+                    assert a.dtype == dtype
+                    assert float((a.float() - b.float()).abs().max()) <= tol
+
+    cfg = dataclasses.replace(smoke_config("olmo-1b"), head_dim=64, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    params = init_params(cfg, 0, "cuda")
+    attn = params["layers"]["0"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        attn[name].requires_grad_()
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 24))).cuda()
+    before = flash_attention.LAUNCHES
+    transformer.forward_train(cfg, params, toks).logsumexp(-1).sum().backward()
+    assert flash_attention.LAUNCHES > before
+    for name in ("wq", "wk", "wv"):
+        grad = attn[name].grad
+        assert grad is not None and bool(grad.isfinite().all()) and bool(grad.any())

@@ -3,7 +3,8 @@ family) against the JAX package on the CPU.
 
 Parameters come from the JAX package's ``init_params`` and move over through
 numpy (the two frameworks' random streams never match); token inputs are made
-with numpy from a seed.  No jax key or array is created at import time.
+with numpy from a seed.  Every JAX computation runs in a spawned child
+(``torch_jaxref``), never in this process.
 """
 import dataclasses
 import functools
@@ -12,43 +13,29 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp
 
-from repro.configs import get_config as jax_get_config
-from repro.configs import smoke_config as jax_smoke_config
-from repro.models import attention as jattn
-from repro.models import common as jcommon
-from repro.models import transformer as jtf
+from torch_jaxref import Reference
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.convert import params_from_numpy
 
-DTYPE_FIELDS = ("dtype", "param_dtype", "optim_moment_dtype")
+JAX = Reference()
+_jax_child = JAX.fixture()
 
 
-def _plain_fields(jcfg) -> dict:
-    """The JAX config as plain values (dtypes by name)."""
-    out = {}
-    for f in dataclasses.fields(jcfg):
-        v = getattr(jcfg, f.name)
-        out[f.name] = np.dtype(v).name if f.name in DTYPE_FIELDS else v
-    return out
-
-
-def _jax_cfg(dtype: str):
-    jdt = getattr(jnp, dtype)
-    return dataclasses.replace(jax_smoke_config("olmo-1b"), dtype=jdt, param_dtype=jdt)
+def _plain_fields(smoke: bool = True, **changes) -> dict:
+    """The JAX olmo-1b config (smoke or full, with ``changes``) as plain
+    values (dtypes by name)."""
+    return JAX("config_fields", "olmo-1b", smoke, **changes)
 
 
 @functools.lru_cache(maxsize=None)
 def _models(dtype: str):
-    """(jax cfg, jax params, port cfg, port params) sharing one parameter set."""
-    jcfg = _jax_cfg(dtype)
-    jparams = jcommon.init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = common.from_reference_config(_plain_fields(jcfg))
-    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
-    return jcfg, jparams, cfg, params
+    """(port cfg, port params) of the JAX smoke config in ``dtype`` and its
+    parameters (PRNGKey(0)), moved over through numpy."""
+    cfg = common.from_reference_config(_plain_fields(dtype=dtype, param_dtype=dtype))
+    params = params_from_numpy(JAX("model_params", dtype, 0), device="cpu")
+    return cfg, params
 
 
 def _tokens(B, S, vocab, seed=0):
@@ -72,12 +59,8 @@ def _close(got, want, rel):
 
 # ------------------------------------------------------------------ configs
 def test_configs_mirror_the_reference():
-    assert get_config("olmo-1b") == common.from_reference_config(
-        _plain_fields(jax_get_config("olmo-1b"))
-    )
-    assert smoke_config("olmo-1b") == common.from_reference_config(
-        _plain_fields(jax_smoke_config("olmo-1b"))
-    )
+    assert get_config("olmo-1b") == common.from_reference_config(_plain_fields(smoke=False))
+    assert smoke_config("olmo-1b") == common.from_reference_config(_plain_fields())
     with pytest.raises(KeyError, match="not yet ported"):
         get_config("mamba2-780m")
     with pytest.raises(KeyError, match="unknown"):
@@ -105,18 +88,15 @@ def test_unported_features_raise(change):
 # --------------------------------------------------------------- parameters
 @pytest.mark.parametrize("arch_cfg", ["smoke", "full"])
 def test_param_shapes_and_dtypes_match_abstract_params(arch_cfg):
-    jcfg = jax_smoke_config("olmo-1b") if arch_cfg == "smoke" else jax_get_config("olmo-1b")
-    cfg = common.from_reference_config(_plain_fields(jcfg))
-    want = {
-        name: (tuple(s.shape), np.dtype(s.dtype).name)
-        for name, s in _leaves(jcommon.abstract_params(jcfg))
-    }
+    smoke = arch_cfg == "smoke"
+    cfg = common.from_reference_config(_plain_fields(smoke))
+    want, count = JAX("abstract_params", "olmo-1b", smoke)
     got = {
         name: (tuple(shape), str(dtype).removeprefix("torch."))
         for name, (shape, dtype) in _leaves(common.param_shapes(cfg))
     }
     assert got == want
-    assert common.count_params(cfg) == jcommon.count_params(jcfg)
+    assert common.count_params(cfg) == count
     if arch_cfg == "smoke":  # allocate only the small one here
         real = {
             name: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
@@ -139,8 +119,8 @@ def test_init_params_follows_the_reference_init_rules():
 
 
 def test_bf16_params_round_trip_bit_exact():
-    jcfg = jax_smoke_config("olmo-1b")  # bf16 parameters
-    flat = dict(_leaves(jax.tree.map(np.asarray, jcommon.init_params(jcfg, jax.random.PRNGKey(4)))))
+    # the smoke config's own bf16 parameters
+    flat = dict(_leaves(JAX("model_params", None, 4)))
     got = dict(_leaves(params_from_numpy(flat, device="cpu")))
     for name, a in flat.items():
         t = got[name]
@@ -158,10 +138,9 @@ def test_apply_norm_matches_reference(norm_type, dtype):
          "n_bias": rng.standard_normal(64).astype(np.float32)}
     if norm_type == "rmsnorm":
         del p["n_bias"]
-    jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"), norm_type=norm_type)
     cfg = dataclasses.replace(smoke_config("olmo-1b"), norm_type=norm_type)
-    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    want = jcommon.apply_norm(jcfg, jnp.asarray(x, jdt), {k: jnp.asarray(v) for k, v in p.items()}, "n")
+    tdt = getattr(torch, dtype)
+    want = JAX("apply_norm", norm_type, x, p, dtype)
     got = common.apply_norm(cfg, torch.from_numpy(x).to(tdt), {k: torch.from_numpy(v) for k, v in p.items()}, "n")
     assert got.dtype == tdt
     _close(got.float().numpy(), want, 1e-5 if dtype == "float32" else 2e-2)
@@ -169,15 +148,13 @@ def test_apply_norm_matches_reference(norm_type, dtype):
 
 @pytest.mark.parametrize("fraction", [1.0, 0.5])
 def test_rope_matches_reference(fraction):
-    jcfg = dataclasses.replace(jax_smoke_config("olmo-1b"), rope_fraction=fraction)
     cfg = dataclasses.replace(smoke_config("olmo-1b"), rope_fraction=fraction)
     rng = np.random.RandomState(6)
     x = rng.standard_normal((2, 9, 4, cfg.hd)).astype(np.float32)
     pos = rng.randint(0, 500, (2, 9)).astype(np.int32)
-    jc, js = jattn.rope_freqs(jcfg, jnp.asarray(pos))
+    jc, _, want = JAX("rope", fraction, x, pos)
     tc, ts = attention.rope_freqs(cfg, torch.from_numpy(pos))
     _close(tc.numpy(), jc, 1e-5)
-    want = jattn.apply_rope(jnp.asarray(x), jc, js)
     got = attention.apply_rope(torch.from_numpy(x), tc, ts)
     _close(got.numpy(), want, 1e-5)
 
@@ -193,25 +170,26 @@ BF16_REL = 3e-2
 
 @pytest.mark.parametrize("dtype,rel", [("float32", F32_REL), ("bfloat16", BF16_REL)])
 def test_forward_prefill_decode_match_reference(dtype, rel):
-    jcfg, jparams, cfg, params = _models(dtype)
+    cfg, params = _models(dtype)
     B, S = 2, 24
     toks = _tokens(B, S, cfg.vocab_size)
-    jt, tt = jnp.asarray(toks), torch.from_numpy(toks).long()
+    tt = torch.from_numpy(toks).long()
+    want = JAX("transformer_outputs", dtype, toks, S + 4)
 
-    want_full, _ = jtf.forward_train(jcfg, jparams, jt)
+    want_full = want["full"]
     got_full = transformer.forward_train(cfg, params, tt)
     assert got_full.dtype == torch.float32 and got_full.shape == (B, S, cfg.padded_vocab)
     _close(got_full[..., : cfg.vocab_size].numpy(), want_full[..., : cfg.vocab_size], rel)
 
-    want_p, jcache = jtf.prefill(jcfg, jparams, jt[:, : S - 1], max_len=S + 4)
+    want_p = want["prefill"]
     got_p, cache = transformer.prefill(cfg, params, tt[:, : S - 1], max_len=S + 4)
     _close(got_p[:, : cfg.vocab_size].numpy(), want_p[:, : cfg.vocab_size], rel)
     for name in ("k", "v"):
-        assert tuple(cache["0"][name].shape) == jcache["0"][name].shape
-        _close(cache["0"][name].float().numpy(), jcache["0"][name], rel)
+        assert tuple(cache["0"][name].shape) == want[name].shape
+        _close(cache["0"][name].float().numpy(), want[name], rel)
 
     pos = np.full((B,), S - 1, np.int32)
-    want_d, _ = jtf.decode_step(jcfg, jparams, jt[:, S - 1], jcache, jnp.asarray(pos))
+    want_d = want["decode"]
     got_d, cache2 = transformer.decode_step(cfg, params, tt[:, S - 1], cache, torch.from_numpy(pos))
     assert cache2 is cache  # updated in place
     _close(got_d[:, : cfg.vocab_size].numpy(), want_d[:, : cfg.vocab_size], rel)
@@ -220,19 +198,20 @@ def test_forward_prefill_decode_match_reference(dtype, rel):
 
 
 def test_generate_tokens_equal_reference():
-    jcfg, jparams, cfg, params = _models("float32")
+    cfg, params = _models("float32")
     prompt = _tokens(2, 8, cfg.vocab_size, seed=7)
-    want = np.asarray(jtf.generate(jcfg, jparams, jnp.asarray(prompt), num_steps=6))
+    want = JAX("generate", "float32", prompt, 6)
     got = transformer.generate(cfg, params, torch.from_numpy(prompt).long(), num_steps=6)
     assert got.shape == (2, 7)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_init_cache_matches_abstract_cache():
-    jcfg, _, cfg, _ = _models("bfloat16")
-    want = jtf.abstract_cache(jcfg, 3, 40)
+    cfg, _ = _models("bfloat16")
+    want = JAX("abstract_cache", "bfloat16", 3, 40)
     got = transformer.init_cache(cfg, 3, 40, "cpu")
-    for (name, s), (gname, t) in zip(_leaves(want), _leaves(got)):
-        assert name == gname and tuple(t.shape) == s.shape
-        assert str(t.dtype).removeprefix("torch.") == np.dtype(s.dtype).name
+    assert len(want) == len(list(_leaves(got)))
+    for (name, shape, dtype), (gname, t) in zip(want, _leaves(got)):
+        assert name == gname and tuple(t.shape) == shape
+        assert str(t.dtype).removeprefix("torch.") == dtype
         assert not t.any()

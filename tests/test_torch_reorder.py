@@ -3,15 +3,17 @@ the JAX package's ``commit_ref`` (bit for bit) and its Pallas
 ``commit_pallas`` in interpret mode (rtol 1e-5, the tolerance of
 ``tests/test_kernels.py``).
 
-Inputs are made with numpy from a seed and handed to both frameworks; jax is
-imported only inside the tests.  On the CPU the wrapper takes the plain
-version; K2 itself runs only on the card (``cuda`` marker).
+Inputs are made with numpy from a seed and handed to both frameworks; the
+JAX side runs in a spawned child (``torch_jaxref``), never in this process.
+On the CPU the wrapper takes the plain version; K2 itself runs only on the
+card (``cuda`` marker).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_jaxref import Reference, bf16
 from repro_torch.kernels import parity
 from repro_torch.kernels.reorder import reorder as k2
 from repro_torch.kernels.reorder.ops import commit
@@ -20,6 +22,8 @@ from repro_torch.models.convert import reorder_state_from_numpy, tensor_from_num
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 K = parity.COMMIT_K  # entries per commit, as in tests/test_kernels.py
+JAX = Reference()
+_jax_child = JAX.fixture()
 
 
 def _bits(a) -> np.ndarray:
@@ -36,46 +40,40 @@ def _assert_same_bits(got, want):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
-def _payloads(rng, width, dtype):
-    import jax.numpy as jnp
-
-    return np.array(jnp.asarray(rng.standard_normal((K, width)), getattr(jnp, dtype)))
+def _payloads(rng, width, dtype, k=K):
+    x = rng.standard_normal((k, width))
+    return bf16(x) if dtype == "bfloat16" else x.astype(np.float32)
 
 
 @pytest.mark.parametrize("size,width", [(8, 128), (64, 128), (32, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_commit_matches_jax_ref_and_pallas(size, width, dtype):
-    import jax.numpy as jnp
-    from repro.kernels.reorder import ops as jax_ops
-    from repro.kernels.reorder.ref import commit_ref as jax_commit_ref
-    from repro.kernels.reorder.ref import init_state as jax_init_state
-
     rng = np.random.RandomState(0)
     st = init_state(size, width, TORCH_DTYPES[dtype])
-    st_ref = st_pallas = jax_init_state(size, width, getattr(jnp, dtype))
+    batches, payloads = [], []
+    for serials in parity.commit_batches(rng, size, 3 * size):
+        pl = _payloads(rng, width, dtype)
+        pl[:, 0] = serials  # the serial rides in column 0 (exact in bf16 below 256)
+        batches.append(serials)
+        payloads.append(pl)
+    want = JAX("reorder_drain", size, width, dtype, batches, payloads, pallas=True)
     emitted_serials = []
     before = commit.LAUNCHES
-    for serials in parity.commit_batches(rng, size, 3 * size):
-        payloads = _payloads(rng, width, dtype)
-        payloads[:, 0] = serials  # the serial rides in column 0 (exact in bf16 below 256)
-        st, em, cnt, acc = commit(st, torch.from_numpy(serials), tensor_from_numpy(payloads, "cpu"))
-        st_ref, em_r, cnt_r, acc_r = jax_commit_ref(st_ref, jnp.asarray(serials),
-                                                    jnp.asarray(payloads))
-        st_pallas, em_p, cnt_p, acc_p = jax_ops.commit(st_pallas, jnp.asarray(serials),
-                                                       jnp.asarray(payloads), use_kernel=True)
+    for serials, pl, r in zip(batches, payloads, want):
+        st, em, cnt, acc = commit(st, torch.from_numpy(serials), tensor_from_numpy(pl, "cpu"))
         n = int(cnt)
-        assert cnt.dtype == torch.int32 and cnt.shape == () and n == int(cnt_r) == int(cnt_p)
-        assert st.next.dtype == torch.int32 and int(st.next) == int(st_ref.next) == int(st_pallas.next)
+        assert cnt.dtype == torch.int32 and cnt.shape == () and n == int(r["count"]) == int(r["p_count"])
+        assert st.next.dtype == torch.int32 and int(st.next) == int(r["next"]) == int(r["p_next"])
         assert acc.dtype == torch.bool
-        np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_r))
-        np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_p))
-        np.testing.assert_array_equal(st.present.numpy(), np.asarray(st_ref.present))
-        np.testing.assert_array_equal(st.present.numpy(), np.asarray(st_pallas.present))
+        np.testing.assert_array_equal(acc.numpy(), r["accepted"])
+        np.testing.assert_array_equal(acc.numpy(), r["p_accepted"])
+        np.testing.assert_array_equal(st.present.numpy(), r["present"])
+        np.testing.assert_array_equal(st.present.numpy(), r["p_present"])
         # every row of emitted (the zero rows past the count too) and the ring
-        _assert_same_bits(em, em_r)
-        _assert_same_bits(st.buf, st_ref.buf)
+        _assert_same_bits(em, r["emitted"])
+        _assert_same_bits(st.buf, r["buf"])
         assert not em[n:].any()
-        np.testing.assert_allclose(em[:n].float().numpy(), np.asarray(em_p[:n], np.float32),
+        np.testing.assert_allclose(em[:n].float().numpy(), r["p_emitted"][:n].astype(np.float32),
                                    rtol=1e-5)
         emitted_serials += em[:n, 0].float().numpy().astype(int).tolist()
     assert commit.LAUNCHES == before  # the CPU path launches nothing
@@ -101,21 +99,16 @@ def test_commit_emits_in_serial_order():
 def test_window_matches_jax_ref_at_the_edges(start):
     """Stale, in-window, past-window and empty serials, and int32 wraparound
     of next + S near 2**31, decided as the reference decides them."""
-    import jax.numpy as jnp
-    from repro.kernels.reorder.ref import commit_ref as jax_commit_ref
-    from repro.kernels.reorder.ref import init_state as jax_init_state
-
     S, W = 8, 4
     cand = [start - 1, start, start + 1, start + S - 1, start + S, start + 3 * S, -1, -7]
     serials = np.asarray([s for s in cand if -(2**31) <= s < 2**31], np.int32)
     payloads = np.arange(len(serials) * W, dtype=np.float32).reshape(-1, W)
     st, em, cnt, acc = commit(init_state(S, W, start=start), torch.from_numpy(serials),
                               torch.from_numpy(payloads))
-    _, em_r, cnt_r, acc_r = jax_commit_ref(jax_init_state(S, W, start=start),
-                                           jnp.asarray(serials), jnp.asarray(payloads))
-    np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_r))
-    assert int(cnt) == int(cnt_r)
-    _assert_same_bits(em, em_r)
+    (r,) = JAX("reorder_drain", S, W, "float32", [serials], [payloads], start=start)
+    np.testing.assert_array_equal(acc.numpy(), r["accepted"])
+    assert int(cnt) == int(r["count"])
+    _assert_same_bits(em, r["emitted"])
     if start < 2**31 - S:
         # start and start+1 are accepted and emitted; the rest is refused
         assert acc.tolist() == [s in (start, start + 1, start + S - 1) for s in serials.tolist()]
@@ -126,31 +119,26 @@ def test_window_matches_jax_ref_at_the_edges(start):
 def test_ring_carried_from_jax_goes_on_in_the_port(dtype):
     """A ring filled by the JAX package, moved over mid-stream with
     ``reorder_state_from_numpy``, drains in the port exactly as in JAX."""
-    import jax.numpy as jnp
-    from repro.kernels.reorder.ref import commit_ref as jax_commit_ref
-    from repro.kernels.reorder.ref import init_state as jax_init_state
-
     rng = np.random.RandomState(3)
     size, width = 16, 128
-    st_ref = jax_init_state(size, width, getattr(jnp, dtype), start=40)
     batches = list(parity.commit_batches(rng, size, 4 * size, start=40))
     payloads = [_payloads(rng, width, dtype) for _ in batches]
+    want = JAX("reorder_drain", size, width, dtype, batches, payloads, start=40)
     half = len(batches) // 2
-    for serials, pl in zip(batches[:half], payloads[:half]):
-        st_ref, *_ = jax_commit_ref(st_ref, jnp.asarray(serials), jnp.asarray(pl))
-    assert np.asarray(st_ref.present).any()  # carried with slots waiting
-    st = reorder_state_from_numpy(*(np.asarray(f) for f in st_ref), device="cpu")
+    carried = want[half - 1]  # the JAX ring after the first half
+    assert carried["present"].any()  # carried with slots waiting
+    st = reorder_state_from_numpy(carried["buf"], carried["present"], carried["next"],
+                                  device="cpu")
     assert isinstance(st, ReorderState)
     assert st.buf.dtype == TORCH_DTYPES[dtype] and st.present.dtype == torch.bool
     assert st.next.dtype == torch.int32 and st.next.shape == ()
-    _assert_same_bits(st.buf, st_ref.buf)
-    for serials, pl in zip(batches[half:], payloads[half:]):
+    _assert_same_bits(st.buf, carried["buf"])
+    for serials, pl, r in zip(batches[half:], payloads[half:], want[half:]):
         st, em, cnt, acc = commit(st, torch.from_numpy(serials), tensor_from_numpy(pl, "cpu"))
-        st_ref, em_r, cnt_r, acc_r = jax_commit_ref(st_ref, jnp.asarray(serials), jnp.asarray(pl))
-        assert int(cnt) == int(cnt_r) and int(st.next) == int(st_ref.next)
-        np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_r))
-        np.testing.assert_array_equal(st.present.numpy(), np.asarray(st_ref.present))
-        _assert_same_bits(em, em_r)
+        assert int(cnt) == int(r["count"]) and int(st.next) == int(r["next"])
+        np.testing.assert_array_equal(acc.numpy(), r["accepted"])
+        np.testing.assert_array_equal(st.present.numpy(), r["present"])
+        _assert_same_bits(em, r["emitted"])
     assert int(st.next) == 40 + 4 * size
 
 
@@ -214,3 +202,101 @@ def test_reorder_kernel_matches_plain_on_card():
     before = commit.LAUNCHES
     commits = parity.check_reorder(commit)
     assert commit.LAUNCHES == before + k2.LAUNCHES_PER_CALL * commits
+
+
+# ---------------------------------------------------------------- the one-launch design
+TILE = 2048  # kTile of csrc/reorder.cu: ring distances per step of the count walk
+
+
+def _emulate_one_launch_commit(state, serials, payloads):
+    """K2's one-launch design on the CPU, by its ownership rules: the count
+    from the old present flags OR the fresh distances, walked in tiles (or,
+    where a slot's distance from next wraps int32, slot by slot with the
+    reference's formula); the scatter writes the accepted rows, their final
+    present flags and their emitted rows below count; the emit side copies
+    the other rows below count from the ring as it was before the commit
+    and zeroes the rest; the last block clears the slots below count.  Every
+    read of the ring is checked to touch no slot that this commit writes."""
+    buf, present, nxt = state
+    S = buf.shape[0]
+    old_buf, old_present = buf.clone(), present.clone()
+    n, ser = int(nxt), serials.tolist()
+    hi = (n + S + 2**31) % 2**32 - 2**31  # int32 wraparound
+    dist = [t - n if (t >= 0 and t >= n and t < hi) else -1 for t in ser]
+    fresh = {d for d in dist if d >= 0}
+    regular = n >= S - 1 - (2**31 - 1)
+    base = n % S
+    count = S
+    if regular:
+        for d0 in range(0, S, TILE):
+            gaps = [d for d in range(d0, min(S, d0 + TILE))
+                    if not old_present[(base + d) % S] and d not in fresh]
+            if gaps:
+                count = gaps[0]
+                break
+    else:
+        assert not fresh  # nothing is accepted where the distance wraps
+        pos = [((i - n + 2**31) % 2**32 - 2**31) % S for i in range(S)]
+        count = min([p for i, p in enumerate(pos) if not old_present[i]], default=S)
+    emitted = torch.full_like(buf, float("nan"))  # every row must be written
+    written = set()
+    for k, d in enumerate(dist):  # scatter
+        if d >= 0:
+            slot = (base + d) % S
+            buf[slot] = payloads[k]
+            present[slot] = d >= count
+            written.add(slot)
+            if d < count:
+                emitted[d] = payloads[k]
+    for i in range(S):  # emit
+        if i >= count:
+            emitted[i] = 0
+        elif i not in fresh:
+            src = ((n + i + 2**31) % 2**32 - 2**31) % S  # the reference's wrapped slot
+            assert src not in written and bool(old_present[src]) or not regular
+            emitted[i] = old_buf[src]
+    for d in range(count):  # clear, by the last block
+        if regular:
+            present[(base + d) % S] = False
+    if not regular:
+        for i in range(S):
+            if pos[i] < count:
+                present[i] = False
+    accepted = torch.tensor([d >= 0 for d in dist])
+    new_next = torch.tensor((n + count + 2**31) % 2**32 - 2**31, dtype=torch.int32)
+    return ReorderState(buf, present, new_next), emitted, torch.tensor(count, dtype=torch.int32), accepted
+
+
+def test_one_launch_design_matches_commit_ref_over_the_sweep():
+    """The card's sweep (drains and ``REORDER_CASES``) through the design's
+    emulation: bit for bit equal to ``commit_ref`` at every commit."""
+    assert parity.check_reorder(_emulate_one_launch_commit, device="cpu") > 0
+
+
+def test_reorder_sweep_cases_drain_through_commit_ref():
+    """The extended sweep's sequences reach the edges they were built for,
+    through the plain version: a count across two tile boundaries, a full
+    ring (count == S), K > S entries, a serial re-sent while present, the
+    int32 window wrap, and the wrapped rings."""
+    cases = list(parity.reorder_cases(np.random.RandomState(0)))
+    assert [c[0] for c in cases][:3] == list(parity.REORDER_CASES)
+    seen = set()
+    for name, S, W, (start, present), batches, counts in cases:
+        st = init_state(S, W, start=start)
+        if present is not None:
+            st.present.copy_(torch.from_numpy(present))
+        got = []
+        for serials in batches:
+            before = st.present.clone()
+            st, em, cnt, acc = commit_ref(st, torch.from_numpy(serials), torch.zeros(len(serials), W))
+            got.append(int(cnt))
+            slots = torch.from_numpy(serials[acc.numpy()].astype(np.int64) % S)
+            if bool(before[slots].any()):
+                seen.add("re-sent while present")
+            if len(serials) > S and (~acc).any():
+                seen.add("K > S with refused entries")
+        assert got == counts, name
+        if name == "tiles and a full ring":
+            assert max(counts) == S and any(2 * TILE < c < S for c in counts)
+            assert int(st.next) == sum(counts) and not st.present.any()
+    assert seen == {"re-sent while present", "K > S with refused entries"}

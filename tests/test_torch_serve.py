@@ -1,6 +1,8 @@
 """Port parity: the ordered serving engine against the JAX engine on the CPU
 (smoke olmo-1b in f32, parameters shared through numpy), plus the JAX
-engine's own regression tests (tests/test_substrate.py) run on the port."""
+engine's own regression tests (tests/test_substrate.py) run on the port.
+The JAX engine and parameters come from a spawned child (``torch_jaxref``),
+never from this process."""
 import dataclasses
 import functools
 
@@ -8,29 +10,25 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp
 
-from repro.configs import smoke_config as jax_smoke_config
-from repro.models.common import init_params as jax_init_params
+from torch_jaxref import Reference
 from repro_torch.configs import smoke_config
 from repro_torch.models import transformer
 from repro_torch.models.common import init_params
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve.engine import OrderedServingEngine
 
+JAX = Reference()
+_jax_child = JAX.fixture()
 
 @functools.lru_cache(maxsize=None)
 def _shared_f32(seed: int):
-    """(jax cfg, jax params, port cfg, port params), f32, one parameter set."""
-    jcfg = dataclasses.replace(
-        jax_smoke_config("olmo-1b"), dtype=jnp.float32, param_dtype=jnp.float32
-    )
-    jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    """(port cfg, port params): smoke olmo-1b in f32 with the JAX package's
+    parameters at PRNGKey(seed)."""
     cfg = dataclasses.replace(
         smoke_config("olmo-1b"), dtype=torch.float32, param_dtype=torch.float32
     )
-    return jcfg, jparams, cfg, params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return cfg, params_from_numpy(JAX("model_params", "float32", seed), "cpu")
 
 
 def _requests(n, vocab, seed=0):
@@ -44,22 +42,18 @@ def _requests(n, vocab, seed=0):
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("schedule", ["interleave", "prefill_first"])
 def test_engine_matches_jax_engine(schedule):
-    from repro.serve.engine import OrderedServingEngine as JaxEngine
-
-    jcfg, jparams, cfg, params = _shared_f32(0)
+    cfg, params = _shared_f32(0)
     reqs = _requests(8, cfg.vocab_size)
-    jeng = JaxEngine(jcfg, jparams, max_slots=3, max_len=48, schedule=schedule)
+    want, want_stats = JAX("engine_run", 0, reqs, schedule, 3, 48)
     eng = OrderedServingEngine(cfg, params, max_slots=3, max_len=48, schedule=schedule,
                                device="cpu")
     for prompt, n in reqs:
-        jeng.submit(prompt, max_new_tokens=n)
         eng.submit(prompt, max_new_tokens=n)
-    want = jeng.run_to_completion()
     got = eng.run_to_completion()
-    assert [c.serial for c in got] == [c.serial for c in want]
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.tokens, w.tokens)
-    assert eng.stats == jeng.stats
+    assert [c.serial for c in got] == [serial for serial, _ in want]
+    for g, (_, tokens) in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, tokens)
+    assert eng.stats == want_stats
 
 
 def test_engine_preserves_arrival_order():
@@ -78,7 +72,7 @@ def _generate_ref(cfg, params, prompt, n_new):
 
 
 def test_engine_matches_generate_reference():
-    _, _, cfg, params = _shared_f32(1)
+    cfg, params = _shared_f32(1)
     prompt = np.asarray([5, 9, 2, 77, 31], np.int32)
     eng = OrderedServingEngine(cfg, params, max_slots=2, max_len=32, device="cpu")
     eng.submit(prompt, max_new_tokens=6)
@@ -90,7 +84,7 @@ def test_decode_position_buffer_never_aliased():
     """The engine mutates its host ``position`` buffer in place after each
     decode; what it hands the decode must be a copy that keeps its call-time
     value for the whole run (``torch.from_numpy`` would alias the buffer)."""
-    _, _, cfg, params = _shared_f32(1)
+    cfg, params = _shared_f32(1)
     prompt = np.asarray([5, 9, 2, 77, 31], np.int32)
     ref = _generate_ref(cfg, params, prompt, 6)
     eng = OrderedServingEngine(cfg, params, max_slots=2, max_len=32, device="cpu")

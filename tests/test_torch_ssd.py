@@ -5,14 +5,16 @@ mode, within 2e-4 (the tolerance of ``tests/test_kernels.py:151-152``), and
 
 Inputs are made with numpy from a seed, as the reference test draws them
 (softplus dt, negative A, B and C scaled by 0.3), and handed to both
-frameworks; jax is imported only inside the tests.  On the CPU the wrapper
-takes the plain version; K5 itself runs only on the card (``cuda`` marker).
+frameworks; the JAX side runs in a spawned child (``torch_jaxref``), never
+in this process.  On the CPU the wrapper takes the plain version; K5 itself
+runs only on the card (``cuda`` marker).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_jaxref import Reference, bf16
 from repro_torch.kernels import parity
 from repro_torch.kernels.ssd import ssd as k5
 from repro_torch.kernels.ssd.ops import ssd
@@ -21,6 +23,8 @@ from repro_torch.kernels.ssd.ref import segsum, ssd_chunked, ssd_decode_step, ss
 TOL = parity.SSD_TOL
 # the shapes of tests/test_kernels.py:141, then chunk=256 (mamba2-780m's)
 SHAPES = list(parity.SSD_SWEEP[:4])
+JAX = Reference()
+_jax_child = JAX.fixture()
 
 
 def _t(arrays, device="cpu"):
@@ -29,19 +33,13 @@ def _t(arrays, device="cpu"):
 
 @pytest.mark.parametrize("B,L,H,P,N,chunk", SHAPES)
 def test_ssd_matches_jax_chunked_and_pallas(B, L, H, P, N, chunk):
-    import jax.numpy as jnp
-    from repro.kernels.ssd import ops as jax_ops
-    from repro.models.ssm import ssd_chunked as jax_ssd_chunked
-
     arrays = parity.ssd_inputs(B, L, H, P, N)
     before = ssd.LAUNCHES
     y, hT = ssd(*_t(arrays), chunk=chunk)
     assert ssd.LAUNCHES == before  # the CPU path launches nothing
     assert y.shape == (B, L, H, P) and y.dtype == torch.float32
     assert hT.shape == (B, H, P, N) and hT.dtype == torch.float32
-    ja = [jnp.asarray(a) for a in arrays]
-    y_r, h_r = jax_ssd_chunked(*ja, chunk=chunk)
-    y_p, h_p = jax_ops.ssd(*ja, chunk=chunk)
+    (y_r, h_r), (y_p, h_p) = JAX("ssd", *arrays, chunk=chunk)
     for got, want in ((y, y_r), (hT, h_r), (y, y_p), (hT, h_p)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
 
@@ -50,13 +48,10 @@ def test_ssd_bf16_x_matches_pallas():
     """x in bf16: y comes back in bf16, from the same f32 scan.  Both sides
     round an f32 value within 2e-4 of the other to bf16, so they agree to
     2e-4 plus one bf16 step (2**-7 relative)."""
-    import jax.numpy as jnp
-    from repro.kernels.ssd import ops as jax_ops
-
     x, dt, A, Bm, Cm = parity.ssd_inputs(1, 256, 2, 64, 128, seed=5)
-    xb = jnp.asarray(x, jnp.bfloat16)
-    y_p, h_p = jax_ops.ssd(xb, *(jnp.asarray(a) for a in (dt, A, Bm, Cm)), chunk=128)
-    xt = torch.from_numpy(np.asarray(xb).view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    xb = bf16(x)
+    _, (y_p, h_p) = JAX("ssd", xb, dt, A, Bm, Cm, chunk=128, x_dtype="bfloat16")
+    xt = torch.from_numpy(xb.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
     y, hT = ssd(xt, *_t((dt, A, Bm, Cm)), chunk=128)
     assert y.dtype == torch.bfloat16 and hT.dtype == torch.float32
     np.testing.assert_allclose(y.float().numpy(), np.asarray(y_p, np.float32),
@@ -66,15 +61,11 @@ def test_ssd_bf16_x_matches_pallas():
 
 @pytest.mark.parametrize("chunk", [64, 256])
 def test_ssd_chunked_with_h0_matches_jax(chunk):
-    import jax.numpy as jnp
-    from repro.models.ssm import ssd_chunked as jax_ssd_chunked
-
     B, L, H, P, N = 2, 256, 3, 64, 32
     arrays = parity.ssd_inputs(B, L, H, P, N, seed=6)
     h0 = (np.random.RandomState(9).standard_normal((B, H, P, N)) * 0.5).astype(np.float32)
     y, hT = ssd_chunked(*_t(arrays), chunk=chunk, h0=torch.from_numpy(h0))
-    y_r, h_r = jax_ssd_chunked(*(jnp.asarray(a) for a in arrays), chunk=chunk,
-                               h0=jnp.asarray(h0))
+    (y_r, h_r), _ = JAX("ssd", *arrays, chunk=chunk, h0=h0, pallas=False)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(hT.numpy(), np.asarray(h_r), rtol=TOL, atol=TOL)
 
@@ -86,9 +77,6 @@ def test_ssd_wrapper_refuses_h0():
 
 
 def test_ssd_decode_step_matches_jax():
-    import jax.numpy as jnp
-    from repro.models.ssm import ssd_decode_step as jax_decode
-
     rng = np.random.RandomState(8)
     B, H, P, N = 2, 3, 16, 8
     x = rng.standard_normal((B, H, P)).astype(np.float32)
@@ -97,7 +85,7 @@ def test_ssd_decode_step_matches_jax():
     Bm, Cm = (rng.standard_normal((2, B, N)) * 0.3).astype(np.float32)
     h = rng.standard_normal((B, H, P, N)).astype(np.float32)
     y, h_new = ssd_decode_step(*_t((x, dt, A, Bm, Cm, h)))
-    y_r, h_r = jax_decode(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm, h)))
+    y_r, h_r = JAX("ssd_decode_step", x, dt, A, Bm, Cm, h)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(h_new.numpy(), np.asarray(h_r), rtol=TOL, atol=TOL)
 
@@ -116,12 +104,9 @@ def test_decode_steps_replay_the_chunked_scan():
 
 
 def test_segsum_matches_jax():
-    import jax.numpy as jnp
-    from repro.models.ssm import segsum as jax_segsum
-
     a = np.random.RandomState(13).standard_normal((3, 2, 17)).astype(np.float32)
     got = segsum(torch.from_numpy(a)).numpy()
-    want = np.asarray(jax_segsum(jnp.asarray(a)))
+    want = JAX("segsum", a)
     assert np.array_equal(np.isneginf(got), np.isneginf(want))
     fin = np.isfinite(want)
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)

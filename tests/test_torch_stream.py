@@ -6,8 +6,11 @@ Each engine's graph is built from that package's own ``OpSpec`` /
 (torch on the CPU through K1's plain version), the reference with
 ``"numpy"``.  Egress is compared bit for bit (``repr`` of every value, so
 float columns match to the last bit and in sign).  K1 itself is held to
-its plain version on the card in ``test_torch_affine.py``.
+its plain version on the card in ``test_torch_affine.py``.  The reference's
+engine runs in a spawned child (``torch_jaxref``), never in this process;
+the operators and chains are the helper's, shared by both packages.
 """
+import functools
 import os
 import subprocess
 import sys
@@ -22,35 +25,24 @@ except ImportError:  # offline env: degrade to seeded randomized sampling
 
 torch = pytest.importorskip("torch")
 
-import repro.columnar as rcol
-import repro.core as rcore
+import torch_jaxref as ref
+from torch_jaxref import Reference
 import repro_torch.columnar as tcol
 import repro_torch.core as tcore
 from repro_torch.columnar import device as tdevice
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 157  # the reference's device-test stream length
-PARAMS = {"a": 3, "b": -1}
-
-
-@pytest.fixture(autouse=True)
-def _own_shm_names(monkeypatch):
-    """The reference engine's rings, when this file runs it, get a name
-    apart from ``repro_*``: other test files list /dev/shm by that prefix to
-    find leaks, and may run at the same time in other workers."""
-    orig = rcore.procrun.shm.ExchangeRing
-
-    def ring(name, *args, **kwargs):
-        return orig(name.replace("repro_", "rtorchref_", 1), *args, **kwargs)
-
-    monkeypatch.setattr(rcore.procrun.shm, "ExchangeRing", ring)
+# runs the reference package only (no jax computation), one child per call:
+# the port's runs below fork workers from this process
+JAX = Reference(keep=False)
+_reference_child = JAX.fixture()
+_pair = ref.pair
+_device_chain = ref.device_chain
+_run = ref.run_process
 
 
 # ---------------------------------------------------------------- operators
-def _pair(v):
-    return [(v, v * 2)]
-
-
 def _source(code: str) -> list:
     rng = np.random.default_rng(len(code) + ord(code[0]))
     if code == "i8":  # beyond int32, and x*3 overflows int64 for some
@@ -60,41 +52,23 @@ def _source(code: str) -> list:
     return (rng.standard_normal(N) * 1e3).tolist()
 
 
-def _device_chain(pkg_core, pkg_col, code: str, kernel: str, backend: str):
-    schema = pkg_col.Schema.of(code, code)
-    return [
-        pkg_core.OpSpec("widen2", "stateless", _pair, cost_us=1.0),
-        pkg_col.device_op("dev", kernel, schema, params=PARAMS,
-                          backend=backend, cost_us=4.0),
-    ]
-
-
-def _device_reference(source, code: str, kernel: str) -> list:
-    frozen = tuple(sorted(PARAMS.items()))
-    schema = rcol.Schema.of(code, code)
-    out = []
-    for v in source:
-        (t,) = _pair(v)
-        out.extend(rcol.ref_apply(t, kernel, frozen, schema))
-    return out
-
-
-def _run(pkg_core, chain, source, backend: str, batch_size: int, **proc):
-    eng = pkg_core.Engine(pkg_core.EngineConfig(
-        backend="process", num_workers=2, batch_size=batch_size,
-        collect_outputs=True,
-        process=pkg_core.ProcessOptions(columnar=True, device_batch=64,
-                                        device_backend=backend, **proc),
-    ))
-    res = eng.run(chain, source)
-    return res.handle().outputs, res
-
-
 # ------------------------------------------------ (a) device egress parity
+BATCH_SIZES, KERNELS, CODES = [1, 7, 32], ["affine", "square", "affine_pallas"], ["i8", "f8", "i4", "f4"]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_egress() -> dict:
+    """(reference egress, per-value reference) of every case of the test
+    below, each as ``repr``, from one child."""
+    cases = [(c, k, b) for c in CODES for k in KERNELS for b in BATCH_SIZES]
+    return dict(zip(cases, JAX("stream_device_egress_many",
+                               [(_source(c), c, k, b) for c, k, b in cases])))
+
+
 @pytest.mark.timeout(120)
-@pytest.mark.parametrize("batch_size", [1, 7, 32])
-@pytest.mark.parametrize("kernel", ["affine", "square", "affine_pallas"])
-@pytest.mark.parametrize("code", ["i8", "f8", "i4", "f4"])
+@pytest.mark.parametrize("batch_size", BATCH_SIZES)
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("code", CODES)
 def test_device_egress_bit_identical_to_reference(code, kernel, batch_size):
     """The port's process-backend egress (``cpu`` backend) equals the JAX
     package's (``numpy`` backend) and the per-value NumPy reference, bit for
@@ -102,89 +76,36 @@ def test_device_egress_bit_identical_to_reference(code, kernel, batch_size):
     source = _source(code)
     ours, res = _run(tcore, _device_chain(tcore, tcol, code, kernel, "cpu"), source,
                      "cpu", batch_size)
-    theirs, _ = _run(rcore, _device_chain(rcore, rcol, code, kernel, "numpy"), source,
-                     "numpy", batch_size)
-    want = _device_reference(source, code, kernel)
-    assert repr(ours) == repr(theirs) == repr(want)
+    theirs, want = _reference_egress()[code, kernel, batch_size]
+    assert repr(ours) == theirs == want
     (stats,) = res.target.device_stats
     assert stats["backend"] == "cpu" and stats["rows"] == N
     assert stats["launches"] == 0  # the plain version ran, not K1
 
 
 # ---------------------------------------- (b) keyed + stateful chain parity
-def _mod5(t):
-    return t[0] % 5
-
-
-def _zero():
-    return 0
-
-
-def _ksum(s, k, t):
-    s += t[0]
-    return s, [(s, t[1])]
-
-
-def _running(s, t):
-    s = (s * 31 + t[0]) % 1000003
-    return s, [(t[0], s)]
-
-
-def _keyed_chain(pkg_core):
-    return [
-        pkg_core.OpSpec("widen2", "stateless", _pair, cost_us=1.0),
-        pkg_core.OpSpec("ksum", "partitioned", _ksum, key_fn=_mod5, num_partitions=8,
-                        init_state=_zero, cost_us=2.0),
-        pkg_core.OpSpec("run", "stateful", _running, init_state=_zero, cost_us=2.0),
-    ]
-
-
 @pytest.mark.timeout(120)
 @pytest.mark.parametrize("backend", ["thread", "process"])
 def test_keyed_stateful_chain_egress_equal(backend):
     source = list(range(301))
-    outs = []
-    for pkg in (tcore, rcore):
-        eng = pkg.Engine(pkg.EngineConfig(
-            backend=backend, num_workers=2, batch_size=7, collect_outputs=True))
-        outs.append(eng.run(_keyed_chain(pkg), source).handle().outputs)
+    eng = tcore.Engine(tcore.EngineConfig(
+        backend=backend, num_workers=2, batch_size=7, collect_outputs=True))
+    outs = [eng.run(ref.keyed_chain(tcore), source).handle().outputs,
+            JAX("stream_keyed", source, backend)]
     assert outs[0] == outs[1]
     assert len(outs[0]) == len(source)
 
 
 # ------------------------------------------------------- (c) explain text
-def _explain(pkg_core, pkg_col, chain_fn, backend: str) -> str:
-    kw = {"device_backend": backend} if backend else {}
-    eng = pkg_core.Engine(pkg_core.EngineConfig(
-        backend="process", num_workers=2, batch_size=32,
-        process=pkg_core.ProcessOptions(worker_budget=4, columnar=True,
-                                        device_batch=128, **kw),
-    ))
-    return eng.plan(chain_fn(pkg_core, pkg_col)).explain()
-
-
-def _golden_device_chain(pkg_core, pkg_col):
-    return [
-        pkg_core.OpSpec("pre", "stateless", _pair, cost_us=3.0),
-        pkg_col.device_op("affine", "affine_pallas", pkg_col.Schema.of("i8", "i8"),
-                          params={"a": 3, "b": 1}, cost_us=20.0),
-        pkg_core.OpSpec("post", "stateless", _pair, cost_us=3.0),
-    ]
-
-
-def _golden_keyed_chain(pkg_core, pkg_col):
-    return _keyed_chain(pkg_core)
-
-
-@pytest.mark.parametrize("chain_fn", [_golden_device_chain, _golden_keyed_chain],
+@pytest.mark.parametrize("chain_fn", [ref.golden_device_chain, ref.keyed_chain],
                          ids=["device", "keyed"])
 def test_explain_text_equal_apart_from_backend_name(chain_fn):
-    ours = _explain(tcore, tcol, chain_fn, "cpu")
-    theirs = _explain(rcore, rcol, chain_fn, "numpy")
+    ours = ref.explain(tcore, tcol, chain_fn, "cpu")
+    theirs = JAX("stream_explain", chain_fn.__name__, "numpy")
     assert ours.replace("backend=cpu", "backend=numpy") == theirs
     # the defaults differ only in the name too: cuda here, auto there
-    assert (_explain(tcore, tcol, chain_fn, "").replace("backend=cuda", "backend=auto")
-            == _explain(rcore, rcol, chain_fn, ""))
+    assert (ref.explain(tcore, tcol, chain_fn, "").replace("backend=cuda", "backend=auto")
+            == JAX("stream_explain", chain_fn.__name__, ""))
 
 
 # --------------------------------------------- (d) executor unit boundaries
@@ -382,11 +303,6 @@ def test_stream_launcher_matches_the_reference_device_chain():
     assert segments() == before  # the port's rings are unlinked after the run
     assert r["dispatches"] >= 2 * (3000 // 256)
     source = stream.make_source(3000, 5).tolist()
-    ref_chain = [rcore.OpSpec("widen", "stateless", stream._widen, cost_us=1.0)] + [
-        rcol.device_op(f"dev{i}", "affine_pallas", rcol.Schema.of(*(["i8"] * 12)),
-                       params={"a": a, "b": b}, backend="numpy", cost_us=2.0)
-        for i, (a, b) in enumerate(stream.DEVICE_PARAMS)
-    ]
-    ref, _ = _run(rcore, ref_chain, source, "numpy", stream.IO_BATCH)
-    np.testing.assert_array_equal(np.array(ref, dtype=np.int64),
+    theirs = JAX("stream_launcher_reference", source, stream.DEVICE_PARAMS, stream.IO_BATCH)
+    np.testing.assert_array_equal(np.array(theirs, dtype=np.int64),
                                   stream.expected(stream.make_source(3000, 5)))

@@ -1,0 +1,472 @@
+"""Reference values from the JAX package (``src/repro``), computed in a
+spawned child process, for the port's tests (``tests/test_torch_*.py``).
+
+Why a child: a pytest worker that has run a jax computation cannot fork
+``device_backend="jax"`` stream workers any more (forked children of an
+initialised XLA runtime deadlock, and the reference's runtime refuses to
+fork), so the reference's own device-stage tests fail when they land on that
+worker after a port test.  The port's tests therefore import neither jax nor
+the JAX package: every reference value comes from a top-level function of
+this module, run by :class:`Reference` in one child started with ``spawn``
+(a fresh interpreter that inherits nothing), through a
+``ProcessPoolExecutor`` created at the first call and shut down at the end of
+the test file (:meth:`Reference.fixture`).
+
+Values cross both ways as numpy arrays and plain Python values; bf16 travels
+as ``ml_dtypes.bfloat16`` arrays (``bf16`` makes one from float32).  jax,
+jaxlib and ``repro`` are imported only inside the functions below, so only
+in the child.  The stream operators (``pair`` and the others) are plain
+functions shared by both packages' engines.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
+
+import numpy as np
+import pytest
+
+
+class Reference:
+    """Calls ``name(*args, **kwargs)``, a function of this module, in one
+    spawned child; the pool starts at the first call.
+
+    With ``keep=False`` the pool is shut down after every call: for test
+    files whose port runs fork workers from this process, which must not
+    copy the pool's live threads (its manager and queue feeder) into them."""
+
+    def __init__(self, keep: bool = True):
+        self._pool = None
+        self._keep = keep
+
+    def __call__(self, name: str, *args, **kwargs):
+        if self._pool is None:
+            self._pool = ProcessPoolExecutor(
+                max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            return self._pool.submit(_run, name, args, kwargs).result()
+        finally:
+            if not self._keep:
+                self.close()
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+    def fixture(self):
+        """A module-scoped autouse fixture that shuts the child down at the
+        end of the test file; assign it to a name in the test module."""
+        @pytest.fixture(scope="module", autouse=True)
+        def _reference_child():
+            yield self
+            self.close()
+        return _reference_child
+
+
+def _run(name, args, kwargs):
+    return globals()[name](*args, **kwargs)
+
+
+def bf16(x) -> np.ndarray:
+    """float32 (or float64) values rounded to bf16, as ``ml_dtypes.bfloat16``."""
+    import ml_dtypes
+
+    return np.asarray(x, np.float32).astype(ml_dtypes.bfloat16)
+
+
+def _np(tree):
+    """jax arrays -> numpy arrays, through dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_np(v) for v in tree)
+    return np.asarray(tree)
+
+
+def _jnp_dtype(name: str):
+    import jax.numpy as jnp
+
+    return getattr(jnp, name)
+
+
+# ------------------------------------------------------------ K2 reorder
+def reorder_drain(size, width, dtype, batches, payloads, start=0, pallas=False):
+    """Commit each of ``batches`` (int32 serials) with its payloads through
+    ``commit_ref`` (and the Pallas ``commit_pallas`` in interpret mode with
+    ``pallas``) from an empty ring at ``start``.  One dict per commit:
+    the reference's emitted, count, accepted and its ring after the commit
+    (buf, present, next); with ``pallas`` the Pallas kernel's emitted,
+    count, accepted, present and next as ``p_*``."""
+    import jax.numpy as jnp
+    from repro.kernels.reorder import ops
+    from repro.kernels.reorder.ref import commit_ref, init_state
+
+    st = st_p = init_state(size, width, _jnp_dtype(dtype), start=start)
+    out = []
+    for serials, pay in zip(batches, payloads):
+        s, p = jnp.asarray(serials), jnp.asarray(pay)
+        st, em, cnt, acc = commit_ref(st, s, p)
+        row = dict(emitted=em, count=cnt, accepted=acc, buf=st.buf, present=st.present,
+                   next=st.next)
+        if pallas:
+            st_p, em_p, cnt_p, acc_p = ops.commit(st_p, s, p, use_kernel=True)
+            row.update(p_emitted=em_p, p_count=cnt_p, p_accepted=acc_p, p_present=st_p.present,
+                       p_next=st_p.next)
+        out.append(_np(row))
+    return out
+
+
+# ----------------------------------------------------------- K3 dispatch
+def dispatch(ids, payloads, P, C, pallas=False):
+    """``dispatch_ref`` (buf, counts, dest), and the Pallas kernel's with
+    ``pallas`` (else None)."""
+    import jax.numpy as jnp
+    from repro.kernels.dispatch import ops
+    from repro.kernels.dispatch.ref import dispatch_ref
+
+    jids, jpay = jnp.asarray(ids), jnp.asarray(payloads)
+    ref = _np(dispatch_ref(jids, jpay, P, C))
+    return ref, (_np(ops.dispatch(jids, jpay, P, C, use_kernel=True)) if pallas else None)
+
+
+# ---------------------------------------------------------- K4 attention
+def attention(q, k, v, dtype, causal):
+    """``attention_ref`` on q, k, v (float32) cast to ``dtype``."""
+    from repro.kernels.attention.ref import attention_ref
+
+    jdt = _jnp_dtype(dtype)
+    return np.asarray(attention_ref(*(np.asarray(a).astype(jdt) for a in (q, k, v)),
+                                    causal=causal))
+
+
+def attention_vjp(q, k, v, g, causal):
+    """``jax.vjp`` of ``attention_ref`` at (q, k, v) against cotangent g, all
+    float32: what the reference's ``custom_vjp`` backward returns."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.attention.ref import attention_ref
+
+    _, vjp = jax.vjp(lambda q_, k_, v_: attention_ref(q_, k_, v_, causal),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    return _np(vjp(jnp.asarray(g)))
+
+
+# --------------------------------------------------------------- K5 SSD
+def ssd(x, dt, A, Bm, Cm, chunk, h0=None, pallas=True, x_dtype="float32"):
+    """``ssd_chunked`` (y, hT), and the Pallas ``ops.ssd`` (y, hT) in
+    interpret mode with ``pallas`` (else None); x cast to ``x_dtype``."""
+    import jax.numpy as jnp
+    from repro.kernels.ssd import ops
+    from repro.models.ssm import ssd_chunked
+
+    ja = [jnp.asarray(x, _jnp_dtype(x_dtype))] + [jnp.asarray(a) for a in (dt, A, Bm, Cm)]
+    ref = None
+    if x_dtype == "float32":
+        kw = {} if h0 is None else {"h0": jnp.asarray(h0)}
+        ref = _np(ssd_chunked(*ja, chunk=chunk, **kw))
+    return ref, (_np(ops.ssd(*ja, chunk=chunk)) if pallas else None)
+
+
+def ssd_decode_step(x, dt, A, Bm, Cm, h):
+    import jax.numpy as jnp
+    from repro.models.ssm import ssd_decode_step as step
+
+    return _np(step(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm, h))))
+
+
+def segsum(a):
+    import jax.numpy as jnp
+    from repro.models.ssm import segsum as jax_segsum
+
+    return np.asarray(jax_segsum(jnp.asarray(a)))
+
+
+# ------------------------------------------------ configs and transformer
+DTYPE_FIELDS = ("dtype", "param_dtype", "optim_moment_dtype")
+
+
+def _leaves(tree, prefix=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _config(name, smoke, **changes):
+    from repro.configs import get_config, smoke_config
+
+    cfg = smoke_config(name) if smoke else get_config(name)
+    changes = {k: _jnp_dtype(v) if k in DTYPE_FIELDS else v for k, v in changes.items()}
+    return dataclasses.replace(cfg, **changes)
+
+
+def config_fields(name, smoke, **changes) -> dict:
+    """The JAX config (``smoke_config`` or ``get_config``, with ``changes``;
+    dtypes by name) as plain values, dtypes by name."""
+    cfg = _config(name, smoke, **changes)
+    return {f.name: np.dtype(getattr(cfg, f.name)).name if f.name in DTYPE_FIELDS
+            else getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def abstract_params(name, smoke):
+    """({leaf name: (shape, dtype name)} of ``abstract_params``, ``count_params``)."""
+    from repro.models import common
+
+    cfg = _config(name, smoke)
+    shapes = {n: (tuple(s.shape), np.dtype(s.dtype).name)
+              for n, s in _leaves(common.abstract_params(cfg))}
+    return shapes, common.count_params(cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _model(dtype, seed):
+    """(cfg, params): smoke olmo-1b with dtype and param_dtype ``dtype``
+    (None: the smoke config's own), ``init_params`` at PRNGKey(seed)."""
+    import jax
+    from repro.models import common
+
+    changes = {} if dtype is None else dict(dtype=dtype, param_dtype=dtype)
+    cfg = _config("olmo-1b", True, **changes)
+    return cfg, common.init_params(cfg, jax.random.PRNGKey(seed))
+
+
+def model_params(dtype, seed):
+    """The parameters of :func:`_model` as a nested dict of numpy arrays."""
+    return _np(_model(dtype, seed)[1])
+
+
+def transformer_outputs(dtype, toks, max_len):
+    """Smoke olmo-1b (PRNGKey(0)) on tokens (B, S): ``forward_train``
+    logits; ``prefill`` of all but the last token (logits, layer 0's k and
+    v); ``decode_step`` of the last token at position S-1."""
+    import jax.numpy as jnp
+    from repro.models import transformer as tf
+
+    cfg, params = _model(dtype, 0)
+    jt = jnp.asarray(toks)
+    S = toks.shape[1]
+    full, _ = tf.forward_train(cfg, params, jt)
+    logits_p, cache = tf.prefill(cfg, params, jt[:, : S - 1], max_len=max_len)
+    pos = jnp.full((toks.shape[0],), S - 1, jnp.int32)
+    logits_d, _ = tf.decode_step(cfg, params, jt[:, S - 1], cache, pos)
+    return _np(dict(full=full, prefill=logits_p, k=cache["0"]["k"], v=cache["0"]["v"],
+                    decode=logits_d))
+
+
+def generate(dtype, prompt, num_steps):
+    import jax.numpy as jnp
+    from repro.models import transformer as tf
+
+    cfg, params = _model(dtype, 0)
+    return np.asarray(tf.generate(cfg, params, jnp.asarray(prompt), num_steps=num_steps))
+
+
+def abstract_cache(dtype, batch, max_len):
+    """[(leaf name, shape, dtype name)] of ``abstract_cache``."""
+    from repro.models import transformer as tf
+
+    cfg, _ = _model(dtype, 0)
+    return [(n, tuple(s.shape), np.dtype(s.dtype).name)
+            for n, s in _leaves(tf.abstract_cache(cfg, batch, max_len))]
+
+
+def apply_norm(norm_type, x, params, dtype):
+    import jax.numpy as jnp
+    from repro.models import common
+
+    cfg = _config("olmo-1b", True, norm_type=norm_type)
+    return np.asarray(common.apply_norm(cfg, jnp.asarray(x, _jnp_dtype(dtype)),
+                                        {k: jnp.asarray(v) for k, v in params.items()}, "n"))
+
+
+def rope(fraction, x, pos):
+    """(cos, sin) of ``rope_freqs`` at ``pos`` and ``apply_rope`` of x."""
+    import jax.numpy as jnp
+    from repro.models import attention
+
+    cfg = _config("olmo-1b", True, rope_fraction=fraction)
+    cos, sin = attention.rope_freqs(cfg, jnp.asarray(pos))
+    return _np((cos, sin, attention.apply_rope(jnp.asarray(x), cos, sin)))
+
+
+def engine_run(seed, requests, schedule, max_slots, max_len):
+    """The JAX ``OrderedServingEngine`` on smoke olmo-1b in f32
+    (PRNGKey(seed)): [(serial, tokens)] in egress order, and its stats."""
+    from repro.serve.engine import OrderedServingEngine
+
+    cfg, params = _model("float32", seed)
+    eng = OrderedServingEngine(cfg, params, max_slots=max_slots, max_len=max_len,
+                               schedule=schedule)
+    for prompt, n in requests:
+        eng.submit(prompt, max_new_tokens=n)
+    comps = eng.run_to_completion()
+    return [(c.serial, np.asarray(c.tokens)) for c in comps], dict(eng.stats)
+
+
+# ------------------------------------------------------ K1 and the stream
+def np_affine(x, a, b):
+    """The JAX package's NumPy device kernel ``_np_affine`` on one column."""
+    from repro.columnar.device import _np_affine
+
+    (out,) = _np_affine((("a", a), ("b", b)))(x)
+    return out
+
+
+def pair(v):
+    return [(v, v * 2)]
+
+
+def mod5(t):
+    return t[0] % 5
+
+
+def zero():
+    return 0
+
+
+def ksum(s, k, t):
+    s += t[0]
+    return s, [(s, t[1])]
+
+
+def running(s, t):
+    s = (s * 31 + t[0]) % 1000003
+    return s, [(t[0], s)]
+
+
+STREAM_PARAMS = {"a": 3, "b": -1}
+
+
+def device_chain(pkg_core, pkg_col, code, kernel, backend):
+    """``pair`` then one device op on ``kernel``, in either package."""
+    schema = pkg_col.Schema.of(code, code)
+    return [
+        pkg_core.OpSpec("widen2", "stateless", pair, cost_us=1.0),
+        pkg_col.device_op("dev", kernel, schema, params=STREAM_PARAMS,
+                          backend=backend, cost_us=4.0),
+    ]
+
+
+def keyed_chain(pkg_core, pkg_col=None):
+    return [
+        pkg_core.OpSpec("widen2", "stateless", pair, cost_us=1.0),
+        pkg_core.OpSpec("ksum", "partitioned", ksum, key_fn=mod5, num_partitions=8,
+                        init_state=zero, cost_us=2.0),
+        pkg_core.OpSpec("run", "stateful", running, init_state=zero, cost_us=2.0),
+    ]
+
+
+def golden_device_chain(pkg_core, pkg_col):
+    return [
+        pkg_core.OpSpec("pre", "stateless", pair, cost_us=3.0),
+        pkg_col.device_op("affine", "affine_pallas", pkg_col.Schema.of("i8", "i8"),
+                          params={"a": 3, "b": 1}, cost_us=20.0),
+        pkg_core.OpSpec("post", "stateless", pair, cost_us=3.0),
+    ]
+
+
+def run_process(pkg_core, chain, source, backend, batch_size, **proc):
+    """``chain`` on ``source`` on the process backend with columnar device
+    stages; (outputs, result)."""
+    eng = pkg_core.Engine(pkg_core.EngineConfig(
+        backend="process", num_workers=2, batch_size=batch_size,
+        collect_outputs=True,
+        process=pkg_core.ProcessOptions(columnar=True, device_batch=64,
+                                        device_backend=backend, **proc),
+    ))
+    res = eng.run(chain, source)
+    return res.handle().outputs, res
+
+
+def explain(pkg_core, pkg_col, chain_fn, backend):
+    kw = {"device_backend": backend} if backend else {}
+    eng = pkg_core.Engine(pkg_core.EngineConfig(
+        backend="process", num_workers=2, batch_size=32,
+        process=pkg_core.ProcessOptions(worker_budget=4, columnar=True,
+                                        device_batch=128, **kw),
+    ))
+    return eng.plan(chain_fn(pkg_core, pkg_col)).explain()
+
+
+@contextlib.contextmanager
+def _own_shm_names():
+    """The reference engine's rings get a name apart from ``repro_*``: the
+    reference's tests list /dev/shm by that prefix to find leaks, and may
+    run at the same time in other workers."""
+    from repro.core import procrun
+
+    orig = procrun.shm.ExchangeRing
+
+    def ring(name, *args, **kwargs):
+        return orig(name.replace("repro_", "rtorchref_", 1), *args, **kwargs)
+
+    procrun.shm.ExchangeRing = ring
+    try:
+        yield
+    finally:
+        procrun.shm.ExchangeRing = orig
+
+
+def stream_device_egress(source, code, kernel, batch_size):
+    """The reference's process-backend egress (``numpy`` device backend) of
+    :func:`device_chain`, and its per-value ``ref_apply``, each as ``repr``."""
+    import repro.columnar as rcol
+    import repro.core as rcore
+
+    with _own_shm_names():
+        out, _ = run_process(rcore, device_chain(rcore, rcol, code, kernel, "numpy"), source,
+                             "numpy", batch_size)
+    frozen = tuple(sorted(STREAM_PARAMS.items()))
+    schema = rcol.Schema.of(code, code)
+    want = []
+    for v in source:
+        (t,) = pair(v)
+        want.extend(rcol.ref_apply(t, kernel, frozen, schema))
+    return repr(out), repr(want)
+
+
+def stream_device_egress_many(cases):
+    """:func:`stream_device_egress` of each (source, code, kernel,
+    batch_size) of ``cases``, in one child."""
+    return [stream_device_egress(*case) for case in cases]
+
+
+def stream_keyed(source, backend):
+    """The reference's egress of :func:`keyed_chain` on ``backend``."""
+    import repro.core as rcore
+
+    eng = rcore.Engine(rcore.EngineConfig(
+        backend=backend, num_workers=2, batch_size=7, collect_outputs=True))
+    with _own_shm_names():
+        return eng.run(keyed_chain(rcore), source).handle().outputs
+
+
+def stream_explain(chain_name, backend):
+    """The reference's ``explain()`` of the named chain of this module."""
+    import repro.columnar as rcol
+    import repro.core as rcore
+
+    return explain(rcore, rcol, globals()[chain_name], backend)
+
+
+def stream_launcher_reference(source, device_params, io_batch):
+    """The reference's engine on ``launch.stream``'s chain (``widen`` to 12
+    ``i8`` columns, then an affine device stage per (a, b), ``numpy``
+    backend); its egress."""
+    import repro.columnar as rcol
+    import repro.core as rcore
+    from repro_torch.launch.stream import _widen
+
+    chain = [rcore.OpSpec("widen", "stateless", _widen, cost_us=1.0)] + [
+        rcol.device_op(f"dev{i}", "affine_pallas", rcol.Schema.of(*(["i8"] * 12)),
+                       params={"a": a, "b": b}, backend="numpy", cost_us=2.0)
+        for i, (a, b) in enumerate(device_params)
+    ]
+    with _own_shm_names():
+        out, _ = run_process(rcore, chain, source, "numpy", io_batch)
+    return out
