@@ -67,12 +67,19 @@ Phases 6-8 hold each kernel to its plain version with the sweeps of
    with -1s; hot partitions overflow and drop) and MoE routing at
    phi3.5-moe's widths (4,096 tokens top-2 of 16 experts, C=640, W=4,096
    bf16); K3 launched 4 x calls times.  Timed at the MoE shape.
-8. K5 (``kernels/ssd/csrc/ssd.cu``, the SSD chunked scan): held to the plain
+8. K5 (``kernels/ssd/csrc/ssd.cu``, the SSD chunked scan split across
+   chunks: chunk states, state passing, chunk outputs, three launches, the
+   products as split TF32 on the tensor cores): held to the plain
    ``ssd_chunked`` on the card within 2e-4 (the kernel tests' tolerance; a
-   bf16 ``x`` adds one bf16 step, 2**-7 relative) at six shapes, then
-   through ``ops.ssd`` at mamba2-780m's widths (H=48, P=64, N=128,
-   chunk=256, B=1, L=2048, f32), launched once, and timed there; both
-   sides' ``y`` is printed against an f64 computation.
+   bf16 ``x`` adds one bf16 step, 2**-7 relative) over
+   ``parity.SSD_SWEEP``, then through ``ops.ssd`` at mamba2-780m's widths
+   (H=48, P=64, N=128, chunk=256, B=1, L=2048, f32), launched
+   ``LAUNCHES_PER_CALL`` times, and timed there by graph replay and
+   eagerly; both sides' ``y`` is printed against an f64 computation, and
+   the bound is that of the units the kernel uses.  Where the parent
+   commit's one-launch K5 is unpacked under ``build/parent/`` (``git
+   archive``), it is timed beside the new one in turns (A B B A), and each
+   launch of the new one alone (``launch/bench_ssd.py``).
 
 Output: human-readable lines, then a ``{"kernels": [...]}`` JSON line, and
 last ``{"ok": true, "device": {...}}``.
@@ -98,6 +105,7 @@ from repro_torch.launch.timing import graph_time_ms, time_ms  # noqa: E402
 # rate for each input type (bf16 on the tensor cores, f32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores
 SERVED_PROMPT_LENS = (17, 128, 200, 333, 512, 64, 45, 300)
 REPLACES = "src/repro/kernels/attention/flash.py:22 (_flash_kernel; pallas_call at :112)"
 K1_REPLACES = "src/repro/columnar/device.py:127 (_pallas_affine_body; pallas_call at :141)"
@@ -595,33 +603,30 @@ def phase_k3() -> dict:
 
 
 # ---------------------------------------------------------------- phase 8
-K5_MAIN = (1, 2048, 48, 64, 128, 256)  # mamba2-780m: B, L, H, P, N, chunk
+K5_PARENT = os.path.join(ROOT, "build", "parent", "src", "repro_torch", "kernels", "ssd", "csrc",
+                         "ssd.cu")
 
 
-def _ssd_inputs(B, L, H, P, N, gen):
-    """The reference test's draw: softplus dt, negative A, B and C x 0.3."""
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-    return (randn(B, L, H, P), torch.nn.functional.softplus(randn(B, L, H)),
-            -torch.exp(randn(H) * 0.3), randn(B, L, N) * 0.3, randn(B, L, N) * 0.3)
-
-
-def ssd_bound(B, L, H, P, N, chunk, x_itemsize) -> tuple[float, str]:
-    """Least time of the scan, in ms, against x, dt, A, B, C read and y, hT
-    written once.  The multiply-adds in f32 that the function needs: C B^T
-    once per (b, chunk), since B and C are shared by the heads, and only its
-    causal lower triangle, cl (cl + 1) / 2 pairs of N; per (b, h, chunk) the
-    masked product with dt x over the same pairs (P each), the state update
-    (cl P N), and C state^T (cl P N) in every chunk but the first, where the
-    state is zero.  A kernel that recomputes C B^T per head, or computes the
-    zeroed upper triangle, does more than this."""
+def ssd_bound(B, L, H, P, N, chunk, x_itemsize, units="tensor") -> tuple[float, str]:
+    """Least time of the scan, in ms, on the units a kernel uses: x, dt, A,
+    B, C read and y, hT written once, against the f32 multiply-adds the
+    function needs: C B^T once per (b, chunk), since B and C are shared by
+    the heads, and only its causal lower triangle, cl (cl + 1) / 2 pairs of
+    N; per (b, h, chunk) the masked product with dt x over the same pairs (P
+    each), the state update (cl P N), and C state^T (cl P N) in every chunk
+    but the first, where the state is zero.  ``units="cuda"``: those
+    operations in f32 on the CUDA cores (67 TF/s); ``"tensor"``: three TF32
+    products on the tensor cores (495 TF/s) for each, as the 3-term split
+    needs.  A kernel that recomputes C B^T per head, or computes the zeroed
+    upper triangle, does more than this."""
     chunks, pairs = L // chunk, chunk * (chunk + 1) // 2
     macs = B * chunks * pairs * N + B * H * (
         chunks * (pairs * P + chunk * P * N) + (chunks - 1) * chunk * P * N)
     ops = 2 * macs
     nbytes = (B * L * H * P * x_itemsize * 2 + B * L * H * 4 + H * 4 + 2 * B * L * N * 4
               + B * H * P * N * 4)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] if units == "cuda" else 3 * ops / TF32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -630,6 +635,7 @@ def phase_k5() -> dict:
     from repro_torch.kernels.ssd import ssd as k5
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_scan_ref
+    from repro_torch.launch import bench_ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -639,33 +645,49 @@ def phase_k5() -> dict:
         log(f"[k5] {label}: max|err| {err:.3g} (tol {parity.SSD_TOL} + rtol x |ref|) ok")
 
     # the main path, through the public wrapper, at mamba2-780m's widths
-    B, L, H, P, N, chunk = K5_MAIN
-    x, dt, A, Bm, Cm = _ssd_inputs(B, L, H, P, N, gen)
+    B, L, H, P, N, chunk = bench_ssd.MAIN
+    x, dt, A, Bm, Cm = bench_ssd.inputs(B, L, H, P, N, gen)
     torch.cuda.synchronize()
     ssd.LAUNCHES = 0
     got = ssd(x, dt, A, Bm, Cm, chunk=chunk)
     launches = ssd.LAUNCHES
     torch.cuda.synchronize()
-    if launches != 1:
-        raise RuntimeError(f"K5 launched {launches} times for one scan")
+    if launches != k5.LAUNCHES_PER_CALL:
+        raise RuntimeError(f"K5 launched {launches} times for one scan, not "
+                           f"{k5.LAUNCHES_PER_CALL}")
     if not all(bool(t.isfinite().all()) for t in got):
         raise RuntimeError("K5 output is not finite at mamba2-780m")
     plain = ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
     ok, max_err = parity.ssd_close(got, plain, parity.SSD_TOL)
-    log(f"[k5] mamba2-780m B,L,H,P,N,chunk={K5_MAIN} f32 (main path): max|err| {max_err:.3g} "
-        f"(tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
+    log(f"[k5] mamba2-780m B,L,H,P,N,chunk={bench_ssd.MAIN} f32 (main path): max|err| "
+        f"{max_err:.3g} (tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("K5 disagrees with ssd_chunked at mamba2-780m")
-    exact = ssd_chunked(*(t.double() for t in (x, dt, A, Bm, Cm)), chunk)[0]
-    log(f"[k5] y vs the f64 computation: kernel {float((got[0] - exact).abs().max()):.3g}, "
-        f"plain {float((plain[0] - exact).abs().max()):.3g}; max|y| {float(exact.abs().max()):.4g}")
+    exact = ssd_chunked(*(t.double() for t in (x, dt, A, Bm, Cm)), chunk)
+    log(f"[k5] vs the f64 computation: y kernel {float((got[0] - exact[0]).abs().max()):.3g}, "
+        f"plain {float((plain[0] - exact[0]).abs().max()):.3g}; hT kernel "
+        f"{float((got[1] - exact[1]).abs().max()):.3g}, plain "
+        f"{float((plain[1] - exact[1]).abs().max()):.3g}; max|y| {float(exact[0].abs().max()):.4g}")
     del exact
-    ms = time_ms(lambda: k5.ssd_fwd(x, dt, A, Bm, Cm, chunk), iters=20, warmup=2)
-    plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, Bm, Cm, chunk), iters=10, warmup=2)
-    bound_ms, bound_by = ssd_bound(B, L, H, P, N, chunk, 4)
-    log(f"[k5] K5 launches on the main path: {launches}; time at mamba2-780m: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), share of bound "
-        f"{bound_ms / ms:.4f}")
+    kernel = lambda: k5.ssd_fwd(x, dt, A, Bm, Cm, chunk)  # noqa: E731
+    plain_fn = lambda: ssd_scan_ref(x, dt, A, Bm, Cm, chunk)  # noqa: E731
+    ms, plain_ms = graph_time_ms(kernel, iters=20), graph_time_ms(plain_fn, iters=10)
+    call_ms = time_ms(kernel, iters=20, warmup=2)
+    plain_call_ms = time_ms(plain_fn, iters=10, warmup=2)
+    bound_ms, bound_by = ssd_bound(B, L, H, P, N, chunk, 4, units="tensor")
+    cuda_ms, cuda_by = ssd_bound(B, L, H, P, N, chunk, 4, units="cuda")
+    log(f"[k5] K5 launches on the main path: {launches} ({k5.LAUNCHES_PER_CALL} a scan); device "
+        f"time at mamba2-780m (graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; eager "
+        f"call: kernel {call_ms:.5f} ms, plain {plain_call_ms:.5f} ms; bound on the units it "
+        f"uses (split TF32, tensor cores) {bound_ms:.5f} ms ({bound_by}), share of bound "
+        f"{bound_ms / ms:.4f}; the f32 CUDA-core bound {cuda_ms:.5f} ms ({cuda_by})")
+    if os.path.exists(K5_PARENT):
+        log(f"[k5] against the parent's one-launch K5 ({os.path.relpath(K5_PARENT, ROOT)}):")
+        for line in bench_ssd.report(bench_ssd.compare(["package", K5_PARENT])):
+            log(f"[k5] {line}")
+    else:
+        log(f"[k5] the parent's one-launch K5 is not unpacked at "
+            f"{os.path.relpath(K5_PARENT, ROOT)}: not timed beside the new one")
     return {
         "name": "ssd_scan", "route": "cuda",
         "source": os.path.relpath(k5.SOURCE, ROOT), "replaces": K5_REPLACES,

@@ -28,9 +28,12 @@ INT32_MAX = 2**31 - 1
 DISPATCH_SWEEP = ((64, 8, 16, 128), (128, 4, 8, 128), (32, 16, 4, 256), (1000, 7, 50, 3),
                   (16384, 64, 512, 32), (300, 1024, 1, 5))
 # (B, L, H, P, N, chunk): the reference tests' shapes, chunk=256, a chunk
-# that is no multiple of the 64-row tile, and a short one
+# that is no multiple of the 64-row tile, a short one, 32 chunks through
+# the state passing, and the longest chunk at P = N = 128 with a head count
+# that fills no whole group of K5's four heads
 SSD_SWEEP = ((1, 128, 2, 64, 128, 64), (2, 256, 4, 64, 128, 128), (1, 512, 2, 128, 64, 128),
-             (1, 512, 2, 64, 128, 256), (1, 300, 3, 64, 64, 100), (2, 128, 1, 128, 128, 32))
+             (1, 512, 2, 64, 128, 256), (1, 300, 3, 64, 64, 100), (2, 128, 1, 128, 128, 32),
+             (1, 2048, 3, 64, 128, 64), (1, 1024, 5, 128, 128, 512))
 SSD_TOL = 2e-4  # tests/test_kernels.py:153-154
 # (B, S, H, Hkv, Dh): olmo-1b's attention (H = Hkv = 16, Dh = 128) at the
 # edges of K4's 64-row tiles and at the longest served prompt, two ragged

@@ -2,13 +2,14 @@
 ``repro.kernels.ssd.ops``).
 
 CPU tensors go to the plain :func:`~.ref.ssd_scan_ref`; CUDA tensors go to
-kernel K5 or raise.  ``ssd.LAUNCHES`` counts kernel launches (one per call),
-so a run can show that its path went through the kernel.
+kernel K5 or raise.  ``ssd.LAUNCHES`` counts CUDA launches
+(:data:`~.ssd.LAUNCHES_PER_CALL` a call), so a run can show that its path
+went through the kernel.
 """
 from __future__ import annotations
 
 from .ref import ssd_scan_ref
-from .ssd import ssd_fwd
+from .ssd import LAUNCHES_PER_CALL, ssd_fwd
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, h0=None):
@@ -21,7 +22,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, h0=None):
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
     out = ssd_fwd(x, dt, A, Bm, Cm, chunk)
-    ssd.LAUNCHES += 1
+    ssd.LAUNCHES += LAUNCHES_PER_CALL
     return out
 
 

@@ -160,4 +160,75 @@ def test_ssd_kernel_matches_plain_on_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     before = ssd.LAUNCHES
     rows = parity.check_ssd(_wrapper)
-    assert ssd.LAUNCHES == before + len(rows)
+    assert ssd.LAUNCHES == before + k5.LAUNCHES_PER_CALL * len(rows)
+
+
+# ---- K5's decomposition, emulated on the CPU with its TF32 rounding
+def _tf32(a):
+    """``cvt.rna.tf32.f32``: 10 mantissa bits, rounded to nearest, ties away
+    from zero (adding half an ulp to the bit pattern rounds the magnitude)."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split(a, b):
+    """a @ b as K5 computes it: each operand split into hi = tf32(v) and lo =
+    tf32(v - hi), three TF32 products lo.hi + hi.lo + hi.hi summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a @ b from TF32 operands with no split."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _ssd_steps(x, dt, A, Bm, Cm, chunk, mm):
+    """K5's three steps in PyTorch, every product through ``mm``: chunk
+    states S = (dt exp(total - cum) x)^T B; the state before each chunk,
+    h <- exp(total) h + S; y = exp(cum_q) C h^T + (Lmask o C B^T) (dt x),
+    with dt folded into the mask and exp(cum_q - cum_k) taken as one exp."""
+    B_, L, H, P = x.shape
+    N, nc = Bm.shape[-1], L // chunk
+    xc = x.reshape(B_, nc, chunk, H, P).permute(0, 1, 3, 2, 4)  # (B,nc,H,cl,P)
+    dtc = dt.reshape(B_, nc, chunk, H).permute(0, 1, 3, 2)  # (B,nc,H,cl)
+    Bc, Cc = Bm.reshape(B_, nc, chunk, N), Cm.reshape(B_, nc, chunk, N)
+    cum = torch.cumsum(dtc * A[:, None], dim=-1)
+    total = cum[..., -1]  # (B,nc,H)
+    w = dtc * torch.exp(total[..., None] - cum)
+    S = mm((xc * w[..., None]).transpose(-1, -2), Bc[:, :, None])  # (B,nc,H,P,N)
+    h, before = torch.zeros(B_, H, P, N), []
+    for c in range(nc):
+        before.append(h)
+        h = torch.exp(total[:, c])[..., None, None] * h + S[:, c]
+    hb = torch.stack(before, dim=1)
+    scores = mm(Cc, Bc.transpose(-1, -2))[:, :, None]  # (B,nc,1,cl,cl)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    decay = torch.exp(cum[..., :, None] - cum[..., None, :]) * dtc[..., None, :]
+    M = torch.where(causal, scores * decay, torch.zeros(()))
+    y = torch.exp(cum)[..., None] * mm(Cc[:, :, None], hb.transpose(-1, -2)) + mm(M, xc)
+    return y.permute(0, 1, 3, 2, 4).reshape(B_, L, H, P), h
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk", parity.SSD_SWEEP)
+def test_split_tf32_steps_match_jax_chunked(B, L, H, P, N, chunk):
+    """K5's decomposition with its split TF32 products holds the JAX
+    ``ssd_chunked`` within 2e-4 at every shape of the card's sweep."""
+    arrays = parity.ssd_inputs(B, L, H, P, N)
+    y, hT = _ssd_steps(*_t(arrays), chunk, _mm_split)
+    (y_r, h_r), _ = JAX("ssd", *arrays, chunk=chunk, pallas=False)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(h_r), rtol=TOL, atol=TOL)
+
+
+def test_tf32_without_the_split_misses_the_tolerance():
+    """The same steps from plain TF32 operands fail ``ssd_close`` by far,
+    which is why K5 splits every operand."""
+    arrays = parity.ssd_inputs(1, 512, 2, 128, 64)
+    (y_r, h_r), _ = JAX("ssd", *arrays, chunk=128, pallas=False)
+    want = (torch.from_numpy(np.asarray(y_r)), torch.from_numpy(np.asarray(h_r)))
+    ok, err = parity.ssd_close(_ssd_steps(*_t(arrays), 128, _mm_tf32), want, TOL)
+    assert not ok and err > 5 * TOL
+    ok, err = parity.ssd_close(_ssd_steps(*_t(arrays), 128, _mm_split), want, TOL)
+    assert ok and err < TOL
