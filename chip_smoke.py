@@ -27,13 +27,23 @@ Phases; any failure exits non-zero and prints no result line:
    schedules.  Egress must be in serial order, every token inside the vocab,
    and K4 launched exactly prefills x 16 times.  One request is then served
    again in f32 and checked token for token against ``generate``.
-4. K1 (``kernels/affine/csrc/affine.cu``, the device stage's affine map):
-   held to its plain version on the card bit for bit (tolerance 0), for
-   every column type with int and float parameters, in one batch that mixes
-   the types and at a row count that is not a multiple of the tile; then
-   times the kernel, the plain version and ``torch.add(b, x, alpha=a)`` on
-   each column (a yardstick only; the port never calls it) at the stream's
-   device batch: 16384 rows of 12 ``i8`` columns.
+4. K1 (``kernels/affine/csrc/affine.cu``, the device stage's affine map,
+   which writes the pinned output buffer over PCIe, so a batch is the copy
+   in and one launch): held to its plain version on the card bit for bit
+   (tolerance 0) with ``parity.check_affine``, from the card's memory into
+   pinned memory (the device stage's route), pinned to pinned and on the
+   card's memory, for every column type with int and float parameters,
+   alone and in one batch that mixes the types, at row counts that fill no
+   tile; a pageable host buffer must be refused.  Then
+   ``launch/bench_affine.py`` at the stream's device batch (16384 rows of
+   12 ``i8`` columns): the device stage's route, the one-launch pinned to
+   pinned design and, where the parent commit is unpacked under
+   ``build/parent/`` (``git archive``), the parent's route (copy in, its
+   K1, copy out), in turns (A B C C B A), by graph replay and eagerly; then
+   the kernel alone, the copies, the plain version and
+   ``torch.add(b, x, alpha=a)`` on each column (a yardstick only; the port
+   never calls it), each beside its bound (PCIe for what crosses the link,
+   from the link's generation and width; HBM for the card's memory).
 5. Stream: ``python -m repro_torch.launch.stream`` as a subprocess (this
    process holds a CUDA context, and device workers are forked): 1,048,576
    tuples through ``widen -> dev0 -> dev1`` on the process runtime, K1 on
@@ -92,6 +102,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -313,85 +324,50 @@ def _tree_map(fn, tree):
 
 
 # ---------------------------------------------------------------- phase 4
-K1_PARAMS = ((3, -1), (1, 5), (2.5, -1), (3, 0.75), (0.1, 0.3))
-K1_DTYPES = (torch.int64, torch.float64, torch.int32, torch.float32)
-
-
-def _k1_column(dtype, rows: int, gen, float_param: bool) -> torch.Tensor:
-    if dtype == torch.int64:  # beyond int32; x*3 overflows on the int path
-        hi = 2**61 if float_param else 2**62
-        return torch.randint(-hi, hi, (rows,), generator=gen, device="cuda", dtype=dtype)
-    if dtype == torch.int32:
-        hi = 2**29 if float_param else 2**31 - 1
-        return torch.randint(-hi, hi, (rows,), generator=gen, device="cuda", dtype=dtype)
-    return (torch.randn(rows, generator=gen, device="cuda", dtype=torch.float64) * 1e3).to(dtype)
+K1_PARENT = os.path.join(ROOT, "build", "parent", "src", "repro_torch", "kernels", "affine",
+                         "csrc", "affine.cu")
 
 
 def phase_k1() -> dict:
+    from repro_torch.kernels import parity
     from repro_torch.kernels.affine import affine as k1
-    from repro_torch.kernels.affine.ref import Layout, affine_staged_ref
+    from repro_torch.kernels.affine.ref import Layout
+    from repro_torch.launch import bench_affine
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    checks = 0
-    for rows in (4093, 16384):  # 4093: not a multiple of any tile
-        for a, b in K1_PARAMS:
-            fp = isinstance(a, float) or isinstance(b, float)
-            cols = [_k1_column(dt, rows, gen, fp) for dt in K1_DTYPES]
-            for batch in [cols] + [[c] for c in cols]:  # mixed, then one type each
-                layout = Layout.of([c.dtype for c in batch], rows)
-                src = layout.stage(batch)
-                out = k1.affine_fwd(src, layout, a, b, torch.empty_like(src))
-                torch.cuda.synchronize()
-                ref = affine_staged_ref(src, layout, a, b, torch.empty_like(src))
-                if not all(torch.equal(layout.column(out, j), layout.column(ref, j))
-                           for j in range(layout.width)):  # every byte of every column
-                    raise RuntimeError(f"K1 disagrees with its plain version: rows {rows}, "
-                                       f"a={a} b={b}, dtypes {[c.dtype for c in batch]}")
-                checks += 1
-    log(f"[k1] {checks} batches (i8/f8/i4/f4, mixed and alone, int and float a, b) equal "
-        "the plain version bit for bit (tolerance 0)")
+    checks = parity.check_affine(k1.affine_fwd)
+    routes = ", ".join(f"{i} to {o}" for i, o in parity.AFFINE_ROUTES)
+    log(f"[k1] {checks} batches (i8/f8/i4/f4 alone and mixed, rows {parity.AFFINE_ROWS}, int and "
+        f"float a, b; {routes}) equal the plain version bit for bit (tolerance 0)")
+    layout = Layout.of([torch.int64], 64)
+    pageable = torch.zeros(layout.nbytes, dtype=torch.uint8)
+    try:
+        k1.affine_fwd(pageable, layout, 3, -1, pageable.clone())
+    except ValueError as e:
+        log(f"[k1] a pageable host buffer is refused: {e}")
+    else:
+        raise RuntimeError("K1 took a pageable host buffer")
 
-    # times at the stream's device batch: 16384 rows of 12 i8 columns, dev0's a, b
-    rows, width, (a, b) = 16384, 12, (3, -1)
-    cols = [_k1_column(torch.int64, rows, gen, False) for _ in range(width)]
-    layout = Layout.of([c.dtype for c in cols], rows)
-    src = layout.stage(cols)
-    dst, dst_ref = torch.empty_like(src), torch.empty_like(src)
-    kernel = lambda: k1.affine_fwd(src, layout, a, b, dst)  # noqa: E731
-    plain = lambda: affine_staged_ref(src, layout, a, b, dst_ref)  # noqa: E731
-    library = lambda: [torch.add(b, c, alpha=a) for c in cols]  # noqa: E731
-    # device time per launch (graph replay); the eager call time beside it
-    # is bound by the host's launch cost at this size
-    ms, plain_ms, library_ms = (graph_time_ms(f) for f in (kernel, plain, library))
-    call_ms = {n: time_ms(f, iters=200) for n, f in
-               (("kernel", kernel), ("plain", plain), ("library", library))}
-    # the device stage's copies of one batch, pinned host <-> card (each
-    # copy outlasts its launch, so back-to-back eager copies keep the link busy)
-    host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=True)
-    h2d_ms = time_ms(lambda: src.copy_(host, non_blocking=True), iters=50)
-    d2h_ms = time_ms(lambda: host.copy_(dst, non_blocking=True), iters=50)
-    got, want = dst.view(torch.int64), dst_ref.view(torch.int64)  # no padding at 16384 rows
-    max_err = 0.0 if torch.equal(got, want) else max(float((got.double() - want.double()).abs().max()), 1.0)
-    nbytes = 2 * rows * width * 8  # each column read once, written once
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[k1] device time per launch at {rows} rows x {width} i8 (graph replay): kernel "
-        f"{ms:.5f} ms, plain {plain_ms:.5f} ms, torch.add x{width} {library_ms:.5f} ms, bound "
-        f"{bound_ms:.5f} ms (bytes), share of bound {bound_ms / ms:.4f}; max|err| {max_err}")
-    log(f"[k1] eager call time (CUDA events around back-to-back calls): kernel "
-        f"{call_ms['kernel']:.5f} ms, plain {call_ms['plain']:.5f} ms, torch.add x{width} "
-        f"{call_ms['library']:.5f} ms")
-    log(f"[k1] copies of one batch ({layout.nbytes} B, pinned): host->card {h2d_ms:.5f} ms "
-        f"({layout.nbytes / h2d_ms / 1e6:.2f} GB/s), card->host {d2h_ms:.5f} ms "
-        f"({layout.nbytes / d2h_ms / 1e6:.2f} GB/s)")
+    # the stream's batch on every route, the parent's route beside the new one
+    parent = Path(K1_PARENT) if os.path.exists(K1_PARENT) else None
+    if parent is None:
+        log(f"[k1] the parent's K1 is not unpacked at {os.path.relpath(K1_PARENT, ROOT)}: its "
+            "route (copy in, K1, copy out) is not timed beside the new one")
+    r = bench_affine.compare(parent)
+    log(f"[k1] {bench_affine.card()}")
+    for line in bench_affine.report(r):
+        log(f"[k1] {line}")
+    # the kernel as the main path launches it: the card's memory into the
+    # pinned output buffer; its bound is the link (the reads come from HBM)
     return {
         "name": "affine",
         "route": "cuda",
         "source": os.path.relpath(k1.SOURCE, ROOT),
         "replaces": K1_REPLACES,
         "launches": 0,  # filled from the stream run
-        "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": library_ms,
+        "max_abs_err": r["max_abs_err"]["kernel"],
+        "ms": r["graph_ms"]["kernel"], "plain_ms": r["graph_ms"]["plain"],
+        "bound_ms": r["bound_ms"]["pcie"], "bound_by": "bytes",
+        "library_ms": r["graph_ms"]["library"],
     }
 
 

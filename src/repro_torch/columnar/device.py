@@ -3,12 +3,14 @@ counterpart of ``repro.columnar.device``, rewritten for PyTorch and CUDA).
 
 A device stage accumulates columnar micro-batches until it holds a
 device-sized batch and dispatches the batch *asynchronously*: it stages the
-batch's columns into a pinned host buffer, and on a side CUDA stream copies
-it to the card, runs the kernel and copies the result back, then records an
-event and returns.  It synchronises (``event.synchronize()``) only when a
-result must cross the ordered-egress boundary.  With ``device_inflight >= 2``
-batches in flight, host-side ingest/encode overlaps the copies and the
-kernel (double-buffering).  See ``docs/columnar.md`` for the protocol.
+batch's columns into a pinned host buffer and, on a side CUDA stream, copies
+it to the card and launches the kernel, which writes the result straight into
+a pinned output buffer over PCIe (two stream operations a batch: no copy
+back), then returns; events before the copy and around the launch time
+the batch on the side stream.  It synchronises (``event.synchronize()``) only when a result must
+cross the ordered-egress boundary.  With ``device_inflight >= 2`` batches in
+flight, host-side ingest/encode overlaps the copy and the kernel
+(double-buffering).  See ``docs/columnar.md`` for the protocol.
 
 Backends (no silent fallback between them):
 
@@ -22,11 +24,14 @@ Backends (no silent fallback between them):
 
 Kernels are elementwise column maps registered in :data:`KERNELS` under a
 name; each entry supplies a NumPy factory and a torch factory.  The torch
-factory returns a *staged* map ``fn(src, layout, dst)`` over whole staging
-buffers (:class:`~repro_torch.kernels.affine.ref.Layout`).
-``affine_pallas`` is K1, the hand-written CUDA kernel (one launch per
-batch); ``affine`` and ``square`` are plain torch elementwise code, as they
-are plain jnp in the reference.  Every backend equals the NumPy reference
+factory returns a *staged* map ``fn(src, layout, dst, device, events=None)``
+over whole staging buffers (:class:`~repro_torch.kernels.affine.ref.Layout`)
+that runs on ``device`` whatever the buffers' placement (on the card, pinned
+host buffers are read and written in place) and records the two
+``events``, where given, right before and after its work on the current
+stream.  ``affine_pallas`` is K1, the
+hand-written CUDA kernel (one launch per batch); ``affine`` and ``square``
+are plain torch elementwise code, as they are plain jnp in the reference.  Every backend equals the NumPy reference
 bit for bit, for every column type.  Batch boundaries never change results
 precisely *because* kernels are elementwise; that is what lets the runtime
 flush partial batches on barriers, EOF, or upstream stalls.
@@ -52,7 +57,7 @@ from ..core.operators import DEVICE, OpSpec
 from ..kernels import _build
 from ..kernels.affine import affine as k1
 from ..kernels.affine.ops import affine_staged
-from ..kernels.affine.ref import Layout, affine_staged_ref
+from ..kernels.affine.ref import ALIGN, Layout, affine_staged_ref, on_device
 from .block import ColumnBlock, Schema
 
 Params = Tuple[Tuple[str, Any], ...]
@@ -111,17 +116,23 @@ def _torch_affine(params: Params) -> Callable[..., None]:
     kw = dict(params)
     a, b = kw.get("a", 1), kw.get("b", 0)
 
-    def fn(src, layout, dst):
-        affine_staged_ref(src, layout, a, b, dst)  # plain torch on any device
+    def fn(src, layout, dst, device, events=None):
+        src, dst = on_device(src, device), on_device(dst, device)
+        _record(events, 0)
+        affine_staged_ref(src, layout, a, b, dst)
+        _record(events, 1)
 
     return fn
 
 
 def _torch_square(params: Params) -> Callable[..., None]:
-    def fn(src, layout, dst):
+    def fn(src, layout, dst, device, events=None):
+        src, dst = on_device(src, device), on_device(dst, device)
+        _record(events, 0)
         for j in range(layout.width):
             x = layout.column(src, j)
             torch.mul(x, x, out=layout.column(dst, j))
+        _record(events, 1)
 
     return fn
 
@@ -130,15 +141,22 @@ def _torch_affine_pallas(params: Params) -> Callable[..., None]:
     kw = dict(params)
     a, b = kw.get("a", 1), kw.get("b", 0)
 
-    def fn(src, layout, dst):
-        affine_staged(src, layout, a, b, dst)  # K1 on the card
+    def fn(src, layout, dst, device, events=None):
+        # K1 on the card; its C entry records the events around the launch
+        affine_staged(src, layout, a, b, dst, device=device, events=events)
 
     return fn
 
 
+def _record(events, i: int) -> None:
+    if events is not None:
+        events[i].record()
+
+
 #: kernel name -> (numpy factory, torch factory); factories take the frozen
 #: params tuple.  The NumPy one returns an elementwise column map
-#: ``fn(*cols) -> cols``, the torch one a staged map ``fn(src, layout, dst)``.
+#: ``fn(*cols) -> cols``, the torch one a staged map
+#: ``fn(src, layout, dst, device, events=None)``.
 KERNELS = {
     "affine": (_np_affine, _torch_affine),
     "square": (_np_square, _torch_square),
@@ -162,17 +180,19 @@ def make_kernel(
     kernel: str, backend: str, params: Params = ()
 ) -> Callable[..., tuple]:
     """Instantiate a registered kernel as a column map ``fn(*cols) -> cols``:
-    NumPy arrays for ``numpy``, torch tensors (on one device) otherwise."""
+    NumPy arrays for ``numpy``, torch tensors (on one device) otherwise,
+    worked on by the backend's device."""
     np_factory, torch_factory = _factories(kernel)
     if resolve_backend(backend) == "numpy":
         return np_factory(params)
     staged = torch_factory(params)
+    device = torch.device(backend)
 
     def fn(*cols):
         layout = Layout.of([c.dtype for c in cols], len(cols[0]))
         src = layout.stage(cols)
         dst = torch.empty_like(src)
-        staged(src, layout, dst)
+        staged(src, layout, dst, device)
         return tuple(layout.column(dst, j) for j in range(layout.width))
 
     return fn
@@ -243,7 +263,9 @@ def device_op(
 
 class _Slot:
     """One staging set of the ring: host buffers in and out (pinned on the
-    card's backend), the device buffers, and the batch's timing events."""
+    card's backend), and on the card the buffer the batch is copied into and
+    three events: before the copy in, and around the launch.  The kernel writes ``host_out`` in
+    place: over PCIe on the card, directly on the CPU."""
 
     def __init__(self, nbytes: int, device: torch.device):
         cuda = device.type == "cuda"
@@ -252,13 +274,12 @@ class _Slot:
         self.host_out = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
         self.host_in_np = self.host_in.numpy()
         self.host_out_np = self.host_out.numpy()
+        self.dev_in = self.events = None
         if cuda:
             self.dev_in = torch.empty(nbytes, dtype=torch.uint8, device=device)
-            self.dev_out = torch.empty(nbytes, dtype=torch.uint8, device=device)
-            self.events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        else:  # the CPU is its own device: the kernel reads and writes host memory
-            self.dev_in, self.dev_out = self.host_in, self.host_out
-            self.events = None
+            self.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            for ev in self.events:
+                ev.record()  # torch creates the CUDA event at its first record
 
 
 class DeviceExecutor:
@@ -276,7 +297,8 @@ class DeviceExecutor:
     Buffers: a ring of ``inflight + 1`` staging slots.  A dispatch writes
     slot ``dispatches % (inflight + 1)``, whose previous batch has been
     popped (at most ``inflight`` batches are in flight when a dispatch
-    starts), so no buffer is rewritten while its copies may still run.  The
+    starts), so no buffer is rewritten while its copy or kernel may still
+    use it.  The
     blocks a pop returns own their columns (copied out of the slot), so a
     caller may hold them across later dispatches."""
 
@@ -304,14 +326,17 @@ class DeviceExecutor:
         self.launches = 0
         self.rows = 0
         # seconds: host staging and copy-out; waiting on the oldest batch;
-        # and, from the batch events, the copies to and from the card and
-        # the kernel (on the cpu backend, the kernel's host time)
-        self._secs = dict(host=0.0, wait=0.0, h2d=0.0, kernel=0.0, d2h=0.0)
+        # on the card, from the side stream's events, the copy in (to the
+        # launch) and the kernel (its writes over PCIe inside); on the cpu
+        # and numpy backends, the map's host time as the kernel's
+        self._secs = dict(host=0.0, wait=0.0, kernel=0.0)
         if self.backend == "numpy":
             self._fn = np_factory(params)
             return
         self._fn = torch_factory(params)
         self._device = torch.device(self.backend)
+        if self.backend == "cuda":
+            self._secs.update(copy_in=0.0, enqueue=0.0)
         self._dtypes = [torch.from_numpy(np.empty(0, dt)).dtype for dt in self.schema.dtypes]
         self._slots: List[Optional[_Slot]] = [None] * (self.inflight_limit + 1)
         self._stream = torch.cuda.Stream() if self.backend == "cuda" else None
@@ -327,7 +352,16 @@ class DeviceExecutor:
         return len(self._inflight)
 
     def stats(self) -> dict:
-        """Counters and the time split of this executor (milliseconds)."""
+        """Counters and the time split of this executor (milliseconds):
+        ``host_ms`` (staging, enqueueing, copying results out of the slot),
+        ``wait_ms`` (waiting on the oldest batch), ``kernel_ms`` (on the card,
+        the side stream's interval around each launch, recorded by K1's C
+        entry with no host work between: the kernel with its writes over
+        PCIe; on the cpu and numpy backends, the map's host time) and, on
+        the card only, ``copy_in_ms`` (from before each batch's copy to the
+        card to its launch: the copy, and any wait for the host to enqueue
+        the launch) and ``enqueue_ms`` (the host's time from that first event
+        to the launch's return, a part of ``host_ms``)."""
         out = {"backend": self.backend, "dispatches": self.dispatches,
                "launches": self.launches, "rows": self.rows}
         out.update({f"{k}_ms": v * 1e3 for k, v in self._secs.items()})
@@ -362,8 +396,12 @@ class DeviceExecutor:
         rows = self._pending_rows
         self.rows += rows
         if self.backend == "numpy":
+            t0 = time.perf_counter()
             big = ColumnBlock.concat(self._pending)
+            t1 = time.perf_counter()
             work = self._fn(*big.columns)
+            self._secs["host"] += t1 - t0
+            self._secs["kernel"] += time.perf_counter() - t1
         else:
             work = self._stage_and_launch(self._pending, rows)
         self._pending = []
@@ -376,8 +414,8 @@ class DeviceExecutor:
         slot = self._slots[i]
         if slot is None or slot.capacity < nbytes:
             # not in flight (see the class docstring), so it may be replaced
-            size = max(nbytes, self.batch * self.schema.row_bytes + 16 * self.schema.width)
-            if self._stream is not None:
+            size = max(nbytes, self.batch * self.schema.row_bytes + ALIGN * self.schema.width)
+            if self._stream is not None:  # the card's buffer belongs to the side stream
                 with torch.cuda.stream(self._stream):
                     slot = _Slot(size, self._device)
             else:
@@ -396,22 +434,23 @@ class DeviceExecutor:
             np.concatenate([b.columns[j] for b in blocks],
                            out=host[off : off + rows * dt.itemsize].view(dt))
         if self._stream is not None:
+            # two stream operations: the copy engine brings the batch in,
+            # and the kernel writes host_out over PCIe; K1's wrapper records
+            # the other two events around its launch
             n = layout.nbytes
-            ev = slot.events
             with torch.cuda.stream(self._stream):
-                ev[0].record()
+                t1 = time.perf_counter()
+                slot.events[0].record()
                 slot.dev_in[:n].copy_(slot.host_in[:n], non_blocking=True)
-                ev[1].record()
-                self._launch(slot, layout)
-                ev[2].record()
-                slot.host_out[:n].copy_(slot.dev_out[:n], non_blocking=True)
-                ev[3].record()
+                self._launch(slot, layout, slot.events[1:])
+                self._secs["enqueue"] += time.perf_counter() - t1
         self._secs["host"] += time.perf_counter() - t0
         return slot, layout
 
-    def _launch(self, slot: _Slot, layout: Layout) -> None:
+    def _launch(self, slot: _Slot, layout: Layout, events=None) -> None:
         before = affine_staged.LAUNCHES
-        self._fn(slot.dev_in, layout, slot.dev_out)
+        src = slot.host_in if slot.dev_in is None else slot.dev_in
+        self._fn(src, layout, slot.host_out, self._device, events)
         self.launches += affine_staged.LAUNCHES - before
 
     # ----------------------------------------------------------------- pop
@@ -443,12 +482,11 @@ class DeviceExecutor:
         t0 = time.perf_counter()
         if slot.events is not None:
             ev = slot.events
-            ev[3].synchronize()  # the ordered-egress boundary
+            ev[2].synchronize()  # the ordered-egress boundary
             t1 = time.perf_counter()
             self._secs["wait"] += t1 - t0
-            self._secs["h2d"] += ev[0].elapsed_time(ev[1]) / 1e3
+            self._secs["copy_in"] += ev[0].elapsed_time(ev[1]) / 1e3
             self._secs["kernel"] += ev[1].elapsed_time(ev[2]) / 1e3
-            self._secs["d2h"] += ev[2].elapsed_time(ev[3]) / 1e3
         else:  # cpu: the batch's work runs now, when its result is needed
             self._launch(slot, layout)
             t1 = time.perf_counter()

@@ -127,8 +127,16 @@ def entry(source: Path, symbol: str, argtypes: tuple, constants: tuple = ()):
 
 def launch(fn, device: torch.device, *args) -> None:
     """Call ``fn`` (from :func:`entry`) with ``args`` and the current stream
-    of ``device``; raise if it returns a CUDA error.  Does not synchronise."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    of ``device``, that device current; raise if it returns a CUDA error.
+    Does not synchronise."""
+    # the raw stream handle, as torch's generated code takes it: building a
+    # torch.cuda.Stream object for it costs several microseconds a launch
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{fn.__name__} failed with cudaError {err}")

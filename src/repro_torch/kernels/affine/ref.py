@@ -29,7 +29,9 @@ import torch
 #: dtype code of each column type, as the columnar wire bytes
 CODES = {torch.int64: 0, torch.float64: 1, torch.int32: 2, torch.float32: 3}
 DTYPES = {code: dt for dt, code in CODES.items()}
-ALIGN = 16  # byte alignment of every column in a staging buffer
+# byte alignment of every column in a staging buffer: a 128-byte line, so
+# that K1's stores into a pinned buffer leave the card as whole lines
+ALIGN = 128
 
 _INT_RANGE = {torch.int64: (-(2**63), 2**63 - 1), torch.int32: (-(2**31), 2**31 - 1)}
 
@@ -140,6 +142,31 @@ class Layout:
         for j, c in enumerate(cols):
             self.column(buf, j).copy_(c)
         return buf
+
+
+class _HostMapped:
+    """A pinned host buffer as the card addresses it: with unified
+    addressing, pinned memory is mapped into the card's address space at its
+    host address, and ``__cuda_array_interface__`` hands that to torch."""
+
+    def __init__(self, t: torch.Tensor):
+        self._keep = t
+        self.__cuda_array_interface__ = {
+            "shape": (t.numel(),), "typestr": "|u1", "data": (t.data_ptr(), False),
+            "version": 2}
+
+
+def on_device(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The staging buffer ``buf`` (uint8, 1-D) as a tensor of ``device``,
+    without a copy: a buffer already there as it is, a pinned host buffer as
+    the card's view of it (torch's kernels then read and write it over
+    PCIe).  Any other placement raises."""
+    if buf.device.type == device.type:
+        return buf
+    if device.type == "cuda" and buf.device.type == "cpu" and buf.is_pinned():
+        return torch.as_tensor(_HostMapped(buf), device=device)
+    raise ValueError(f"a buffer on {buf.device} (pinned: {buf.is_pinned()}) cannot be "
+                     f"worked on by {device} in place")
 
 
 def affine_staged_ref(src: torch.Tensor, layout: Layout, a, b,

@@ -1,9 +1,10 @@
-"""Kernels K2, K3, K4 and K5 held to their plain versions on the same inputs.
+"""Kernels K1-K5 held to their plain versions on the same inputs.
 
-``check_reorder``, ``check_dispatch``, ``check_flash`` and ``check_ssd`` run
-one sweep each through a kernel call given by the caller (the public wrapper
-or the binding) and through the plain version, and raise ``RuntimeError`` at
-the first disagreement: K2 and K3 bit for bit (tolerance 0), K4 within
+``check_affine``, ``check_reorder``, ``check_dispatch``, ``check_flash`` and
+``check_ssd`` run one sweep each through a kernel call given by the caller
+(the public wrapper or the binding) and through the plain version, and raise
+``RuntimeError`` at the first disagreement: K1, K2 and K3 bit for bit
+(tolerance 0), K4 within
 :data:`FLASH_TOL`, K5 within :data:`SSD_TOL`.  ``chip_smoke.py`` and the ``cuda``-marked tests run them on
 the card; the CPU tests share the input makers below.  Inputs are drawn with
 numpy from a seed.
@@ -13,11 +14,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .affine.ref import Layout, affine_staged_ref
 from .attention.ref import attention_ref
 from .dispatch.ref import dispatch_ref
 from .reorder.ref import ReorderState, commit_ref, init_state
 from .ssd.ref import ssd_scan_ref
 
+# K1: row counts that fill no tile (and one that fills no 16-byte vector),
+# and the stream's batch; every column type alone and all four mixed in one
+# batch; int and float a, b; (src, dst) placements: the device stage's route
+# (the card's memory into the pinned output buffer), pinned to pinned, and
+# the card's memory alone
+AFFINE_ROWS = (7, 4093, 16384)
+AFFINE_PARAMS = ((3, -1), (1, 5), (2.5, -1), (3, 0.75), (0.1, 0.3))
+AFFINE_DTYPES = (torch.int64, torch.float64, torch.int32, torch.float32)
+AFFINE_ROUTES = (("device", "pinned"), ("pinned", "pinned"), ("device", "device"))
 COMMIT_K = 8  # entries per commit in the reorder sweep, as the reference tests
 REORDER_SWEEP = ((8, 128), (64, 128), (32, 256), (1000, 3))  # (S, W) of the drains
 # commit sequences at the edges of K2's one-launch design (reorder_cases)
@@ -155,6 +166,62 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
         a, b = a.view(view), b.view(view)
     return torch.equal(a, b)
+
+
+def affine_column(dtype: torch.dtype, rows: int, rng, float_param: bool) -> np.ndarray:
+    """A column for K1: ``i8`` beyond int32 (``x*3`` overflows on the int
+    path), ``i4`` near its edges, floats spread to 1e3.  With a float
+    parameter, integers stay where the float64 result converts back."""
+    if dtype == torch.int64:
+        hi = 2**61 if float_param else 2**62
+        return rng.integers(-hi, hi, size=rows, dtype=np.int64)
+    if dtype == torch.int32:
+        hi = 2**29 if float_param else 2**31 - 1
+        return rng.integers(-hi, hi, size=rows, dtype=np.int32)
+    return (rng.standard_normal(rows) * 1e3).astype(
+        np.float64 if dtype == torch.float64 else np.float32)
+
+
+def staging_buffer(nbytes: int, place: str) -> torch.Tensor:
+    """An empty staging buffer for K1 in ``place``: ``pinned`` host memory
+    or the card's memory (``device``)."""
+    if place == "pinned":
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    return torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+
+
+def check_affine(affine_fn, routes=AFFINE_ROUTES, seed: int = 1) -> int:
+    """K1 over every column type alone and all four in one batch, at
+    :data:`AFFINE_ROWS`, under :data:`AFFINE_PARAMS`, on each (src, dst)
+    placement of ``routes``: ``affine_fn(src, layout, a, b, dst)`` on
+    buffers there against ``affine_staged_ref`` on the card, every byte of
+    every column equal.  Returns the number of batches checked."""
+    rng = np.random.default_rng(seed)
+    checks = 0
+    for rows in AFFINE_ROWS:
+        for a, b in AFFINE_PARAMS:
+            fp = isinstance(a, float) or isinstance(b, float)
+            cols = [torch.from_numpy(affine_column(dt, rows, rng, fp)) for dt in AFFINE_DTYPES]
+            for batch in [cols] + [[c] for c in cols]:
+                layout = Layout.of([c.dtype for c in batch], rows)
+                staged = layout.stage(batch)
+                ref = affine_staged_ref(staged.cuda(), layout, a, b,
+                                        torch.empty(layout.nbytes, dtype=torch.uint8,
+                                                    device="cuda"))
+                for place_in, place_out in routes:
+                    src = staging_buffer(layout.nbytes, place_in)
+                    src.copy_(staged)
+                    dst = affine_fn(src, layout, a, b, staging_buffer(layout.nbytes, place_out))
+                    torch.cuda.synchronize()
+                    got = dst.cuda()
+                    if not all(bits_equal(layout.column(got, j), layout.column(ref, j))
+                               for j in range(layout.width)):
+                        raise RuntimeError(
+                            f"K1 disagrees with its plain version: {place_in} to {place_out}, "
+                            f"rows {rows}, "
+                            f"a={a} b={b}, dtypes {[c.dtype for c in batch]}")
+                    checks += 1
+    return checks
 
 
 def _commit_both(commit_fn, st, st_ref, serials, pay, label):

@@ -12,7 +12,9 @@ a seeded generator, most beyond the int32 range and a third of them
 overflowing ``x*3``.  Egress must be in serial order and bit-identical to
 the same chain computed by NumPy over the whole source.  Prints throughput,
 p99 latency, each device worker's counters and the device stage's time
-split (copies to and from the card, K1, host work), then a JSON line.
+split (on the card, from the side stream's events: the copy in, up to the
+launch; K1, whose writes go straight into the pinned output buffer over
+PCIe; and the executor's host work and waiting), then a JSON line.
 
 The parent never touches CUDA: device workers are forked, and each opens
 its own CUDA context (see ``repro_torch.columnar.device``).
@@ -43,6 +45,10 @@ IO_BATCH = 32
 DEVICE_PARAMS = ((3, -1), (1, 5))  # (a, b) of dev0 and dev1
 SCHEMA = Schema.of(*(["i8"] * COL_WIDTH))
 SHM = "/dev/shm"
+# what a device stage's kernel time is, by backend
+KERNEL_MEANS = {"cuda": "the side stream's interval around each K1 launch, its writes of the "
+                        "pinned output over PCIe inside",
+                "cpu": "the plain version's host time"}
 
 
 def _widen(v):
@@ -77,6 +83,22 @@ def unit_payload(io_batch: int) -> int:
     blk = ColumnBlock.from_values(rows, marks=[(0, _Marker(time.perf_counter()))],
                                   schema=SCHEMA)
     return -(-(len(encode_block(blk)) + 256) // 64) * 64
+
+
+def stage_line(s: dict) -> str:
+    """One device stage's counters and time split (``DeviceExecutor.stats()``),
+    in total and per dispatch."""
+    per = max(s["dispatches"], 1)
+    parts = [(k, what) for k, what in (
+        ("copy_in", "from before the copy to the card to the launch"),
+        ("kernel", KERNEL_MEANS[s["backend"]]),
+        ("host", "the executor's"),
+        ("enqueue", "of host: enqueueing the copy and the launch"),
+        ("wait", "on the oldest batch")) if f"{k}_ms" in s]
+    return (f"device stage {s['stage']} ({s['backend']}): {s['dispatches']} dispatches, "
+            f"{s['rows']} rows ({s['rows'] / per:.0f}/dispatch), {s['launches']} K1 launches; " +
+            ", ".join(f"{k} {s[f'{k}_ms']:.3f} ms ({s[f'{k}_ms'] / per:.4f}/dispatch; {what})"
+                      for k, what in parts))
 
 
 def main(argv=None) -> dict:
@@ -133,14 +155,10 @@ def main(argv=None) -> dict:
     print(f"[stream] {rep}", flush=True)
     split = {}
     for s in stats:
-        parts = {k: s[f"{k}_ms"] for k in ("h2d", "kernel", "d2h", "host")}
+        parts = {k: s[f"{k}_ms"] for k in ("copy_in", "kernel", "host") if f"{k}_ms" in s}
         total = sum(parts.values()) or 1.0
         split[f"stage{s['stage']}"] = {k: v / total for k, v in parts.items()}
-        print(f"[stream] device stage {s['stage']} ({s['backend']}): {s['dispatches']} dispatches, "
-              f"{s['rows']} rows ({s['rows'] / max(s['dispatches'], 1):.0f}/dispatch), "
-              f"{s['launches']} K1 launches; h2d {s['h2d_ms']:.3f} ms, kernel "
-              f"{s['kernel_ms']:.3f} ms, d2h {s['d2h_ms']:.3f} ms, host {s['host_ms']:.3f} ms, "
-              f"wait {s['wait_ms']:.3f} ms; shares " +
+        print(f"[stream] {stage_line(s)}; shares " +
               ", ".join(f"{k} {v:.3f}" for k, v in split[f'stage{s["stage"]}'].items()),
               flush=True)
     if args.device == "cuda" and launches != dispatches:

@@ -165,6 +165,27 @@ def test_device_executor_never_reuses_a_buffer_too_early(inflight):
     assert ex.dispatches == 20 and len(ex._slots) == inflight + 1
 
 
+@pytest.mark.parametrize("backend", ["cpu", "numpy"])
+def test_device_executor_stats_split(backend):
+    """``stats()`` reports the split that exists: the kernel (on the card, the
+    side stream's interval holding the copy in and the launch), host work and
+    waiting; no copy keys, and no buffers on a card."""
+    spec = tcol.device_op("dev", "affine_pallas", tcol.Schema.of("i8", "f4"),
+                          params={"a": 3, "b": -1}, backend=backend)
+    ex = tcol.DeviceExecutor(spec, batch=4, inflight=2)
+    for s in range(1, 41, 4):
+        rows = [(s + i, float(s + i)) for i in range(4)]
+        ex.submit(tcol.ColumnBlock.from_values(rows, head_serial=s, schema=spec.schema))
+    ex.flush()
+    st = ex.stats()
+    assert set(st) == {"backend", "dispatches", "launches", "rows", "host_ms", "wait_ms",
+                       "kernel_ms"}
+    assert (st["backend"], st["dispatches"], st["rows"], st["launches"]) == (backend, 10, 40, 0)
+    assert st["kernel_ms"] > 0 and st["host_ms"] > 0
+    for slot in getattr(ex, "_slots", []):
+        assert slot.dev_in is None and not hasattr(slot, "dev_out")
+
+
 # ------------------------------------------ (e) construction and backends
 def test_device_op_rejects_bad_construction():
     with pytest.raises(ValueError):
