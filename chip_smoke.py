@@ -15,8 +15,10 @@ Phases; any failure exits non-zero and prints no result line:
    ``attention_ref`` on the card (max error within 2e-2 in bf16, 2e-5 in
    f32, the tolerances of the kernel tests) over ``parity.FLASH_SWEEP``:
    olmo-1b's attention (B=1, H=Hkv=16, Dh=128) at S in {1, 13, 63, 64, 65,
-   128, 129, 200, 512}, B=2 at S=65, and GQA (H=16, Hkv=4) at Dh=128 and
-   Dh=64, bf16 and f32, causal and not.  Then, at every served prompt
+   128, 129, 200, 512}, B=2 at S=65, GQA (H=16, Hkv=4) at Dh=128 and
+   Dh=64, and the dense configs' heads at S=200 (32/2 and 48/4 at Dh=128,
+   GQA groups of 16 and 12; 32/32 at Dh=64), bf16 and f32, causal and
+   not.  Then, at every served prompt
    length, the device time of the kernel, the plain version and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
    it) by CUDA-graph replay, and beside it the eager call time of the
@@ -91,12 +93,40 @@ Phases 6-8 hold each kernel to its plain version with the sweeps of
    archive``), it is timed beside the new one in turns (A B B A), and each
    launch of the new one alone (``launch/bench_ssd.py``).
 
+Phases 9-12 serve the other families through the port's entry points
+(random bf16 weights from a seeded generator; every count set to 0 just
+before a path is driven and read just after):
+
+9. MoE: qwen2-moe-a2.7b at full width (the published config, no cuts: 24
+   layers, d_model 2048, 60 experts top-4 + 4 shared, vocab 151,936, 14.3 B
+   params) through the engine as in phase 3.  K3 must be launched (prefills
+   + decode steps) x 24 x 4 times and K4 prefills x 24.  The dispatch of
+   layer 0 in the 512-token prefill is held to ``dispatch_ref`` bit for bit
+   (buffers, counts, dest) and timed there; then an f32 cut of the model
+   (full widths, 4 layers, the bf16 copy freed first) is served against
+   ``generate``, token for token.
+10. phi3.5-moe-42b-a6.6b at its published widths with 4 of its 32 layers
+    (78 GiB of parameters do not fit beside a cache): one ``generate``,
+    K3 launched (1 + steps) x 4 x 4 times, K4 4 times.
+11. SSM: mamba2-780m at full width (48 layers, d_model 1536, 48 heads of
+    64, state 128, chunk 256) through the engine.  K5 must be launched
+    prefills x 48 x 3 times and K4 never.  The scan of layer 0 in the
+    512-token prefill is held to ``ssd_chunked`` within 2e-4 and timed
+    there; then the model in f32 is served against ``generate``.
+12. glm4-9b, chatglm3-6b, starcoder2-15b and musicgen-large at their
+    widths with 4 layers: one ``generate`` each, K4 launched 4 times each.
+
+The kernels line gives K3 and K5 at the served layer's shape (phases 9 and
+11) and each kernel's launches summed over the paths that run it.
+
 Output: human-readable lines, then a ``{"kernels": [...]}`` JSON line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -257,66 +287,100 @@ def _serve(cfg, params, requests, schedule):
     return eng, comps, wall
 
 
-def phase_serving() -> int:
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.attention.ops import flash_attention
-    from repro_torch.models import transformer
-    from repro_torch.models.common import count_params, init_params
-
-    cfg = get_config("olmo-1b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
-        f"{cfg.vocab_size}, {count_params(cfg) / 1e9:.3f} B params (bf16) made in "
-        f"{time.perf_counter() - t0:.1f}s")
+def _requests(cfg):
+    """The eight served requests: SERVED_PROMPT_LENS prompts, 16-64 new
+    tokens, drawn with numpy from seed 0."""
     rng = np.random.RandomState(0)
     new_tokens = rng.randint(16, 65, size=len(SERVED_PROMPT_LENS))
-    requests = [
+    return [
         (rng.randint(0, cfg.vocab_size, size=S).astype(np.int32), int(n))
         for S, n in zip(SERVED_PROMPT_LENS, new_tokens)
     ]
-    _serve(cfg, params, requests[:1], "interleave")  # warm-up: cuBLAS, caches
 
-    flash_attention.LAUNCHES = 0
-    runs = {}
-    for schedule in ("interleave", "prefill_first"):
-        runs[schedule] = _serve(cfg, params, requests, schedule)
-    launches = flash_attention.LAUNCHES
 
-    prefills = 0
+def _made(tag, cfg, t0, cut="") -> None:
+    from repro_torch.models.common import count_params
+
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {count_params(cfg) / 1e9:.3f} B params ({str(cfg.param_dtype)[6:]}) "
+        f"made in {time.perf_counter() - t0:.1f}s")
+
+
+def _serve_both(tag, cfg, params, requests, counters) -> tuple[dict, dict, int, int]:
+    """A one-request warm-up (cuBLAS, caches), then every count in
+    ``counters`` (wrappers with a ``LAUNCHES`` count) set to 0 and the
+    requests served under both schedules.  Returns (runs, launches in the
+    two runs, prefills, decode steps)."""
+    _serve(cfg, params, requests[:1], "interleave")
+    for fn in counters.values():
+        fn.LAUNCHES = 0
+    runs = {schedule: _serve(cfg, params, requests, schedule)
+            for schedule in ("interleave", "prefill_first")}
+    launches = {name: fn.LAUNCHES for name, fn in counters.items()}
+    prefills = steps = 0
     for schedule, (eng, comps, wall) in runs.items():
         ntok = sum(len(c.tokens) for c in comps)
         prefills += eng.stats["prefills"]
-        log(f"[serve] {schedule}: {len(comps)} requests, {ntok} tokens in {wall:.3f}s "
+        steps += eng.stats["decode_steps"]
+        log(f"[{tag}] {schedule}: {len(comps)} requests, {ntok} tokens in {wall:.3f}s "
             f"({ntok / wall:.1f} tok/s); prefills {eng.stats['prefills']}, decode steps "
             f"{eng.stats['decode_steps']}; egress in serial order")
         for c in comps:
-            log(f"[serve]   #{c.serial} ({len(c.tokens)} tokens, {c.latency_s:.3f}s): "
+            log(f"[{tag}]   #{c.serial} ({len(c.tokens)} tokens, {c.latency_s:.3f}s): "
                 f"{c.tokens.tolist()}")
     same = all(
         np.array_equal(a.tokens, b.tokens)
         for a, b in zip(runs["interleave"][1], runs["prefill_first"][1])
     )
-    log(f"[serve] the two schedules gave the same tokens: {same}")
-    if launches != prefills * cfg.num_layers:
-        raise RuntimeError(f"K4 launched {launches} times, expected {prefills} x {cfg.num_layers}")
-    log(f"[serve] K4 launches on the main path: {launches} = {prefills} prefills x "
-        f"{cfg.num_layers} layers")
+    log(f"[{tag}] the two schedules gave the same tokens: {same}")
+    return runs, launches, prefills, steps
+
+
+def _f32_check(tag, cfg32, params32, request) -> None:
+    """One request through the engine in f32, where rounding cannot flip a
+    greedy choice, token for token against ``generate``."""
+    from repro_torch.models import transformer
+
+    prompt, n_new = request
+    _, comps, _ = _serve(cfg32, params32, [(prompt, n_new)], "interleave")
+    ref = transformer.generate(cfg32, params32, torch.from_numpy(prompt)[None].long().cuda(),
+                               n_new - 1)[0].cpu().numpy()
+    if not np.array_equal(comps[0].tokens, ref):
+        raise RuntimeError(f"{tag}: f32 engine tokens {comps[0].tokens.tolist()} != generate "
+                           f"{ref.tolist()}")
+    log(f"[{tag}] f32 check ({cfg32.num_layers} layers): engine tokens equal generate for a "
+        f"{len(prompt)}-token prompt ({n_new} tokens)")
+
+
+def _expect(tag, what, got, want, how) -> None:
+    if got != want:
+        raise RuntimeError(f"{tag}: {what} launched {got} times, expected {want} = {how}")
+    log(f"[{tag}] {what} launches on the main path: {got} = {how}")
+
+
+def phase_serving() -> int:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.models.common import init_params
+
+    cfg = get_config("olmo-1b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _made("serve", cfg, t0)
+    requests = _requests(cfg)
+    runs, launches, prefills, _ = _serve_both("serve", cfg, params, requests,
+                                              {"K4": flash_attention})
+    _expect("serve", "K4", launches["K4"], prefills * cfg.num_layers,
+            f"{prefills} prefills x {cfg.num_layers} layers")
 
     # f32, where rounding cannot flip a greedy choice: engine vs generate
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
     del runs
     params32 = _tree_map(lambda t: t.float(), params)
     del params
-    prompt, n_new = requests[0]
-    _, comps, _ = _serve(cfg32, params32, [(prompt, n_new)], "interleave")
-    ref = transformer.generate(cfg32, params32, torch.from_numpy(prompt)[None].long().cuda(), n_new - 1)
-    ref = ref[0].cpu().numpy()
-    if not np.array_equal(comps[0].tokens, ref):
-        raise RuntimeError(f"f32 engine tokens {comps[0].tokens.tolist()} != generate {ref.tolist()}")
-    log(f"[serve] f32 check: engine tokens equal generate for request 1 ({n_new} tokens)")
-    return launches
+    _f32_check("serve", cfg32, params32, requests[0])
+    return launches["K4"]
 
 
 def _tree_map(fn, tree):
@@ -557,7 +621,7 @@ def phase_k3() -> dict:
             f"{int(counts.min())}, {dropped} tuples dropped past capacity")
     if int((outs["skewed keyed"][1] > 512).sum()) == 0:
         raise RuntimeError("the skewed keyed batch overflowed no partition")
-    log(f"[k3] K3 launches on the main path: {launches} = {k3.LAUNCHES_PER_CALL} x "
+    log(f"[k3] K3 launches through the wrapper: {launches} = {k3.LAUNCHES_PER_CALL} x "
         f"{len(cases)} dispatches")
 
     ids, pay, P, C = cases["moe"]
@@ -635,7 +699,7 @@ def phase_k5() -> dict:
         raise RuntimeError("K5 output is not finite at mamba2-780m")
     plain = ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
     ok, max_err = parity.ssd_close(got, plain, parity.SSD_TOL)
-    log(f"[k5] mamba2-780m B,L,H,P,N,chunk={bench_ssd.MAIN} f32 (main path): max|err| "
+    log(f"[k5] mamba2-780m B,L,H,P,N,chunk={bench_ssd.MAIN} f32 (one long scan): max|err| "
         f"{max_err:.3g} (tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("K5 disagrees with ssd_chunked at mamba2-780m")
@@ -652,7 +716,7 @@ def phase_k5() -> dict:
     plain_call_ms = time_ms(plain_fn, iters=10, warmup=2)
     bound_ms, bound_by = ssd_bound(B, L, H, P, N, chunk, 4, units="tensor")
     cuda_ms, cuda_by = ssd_bound(B, L, H, P, N, chunk, 4, units="cuda")
-    log(f"[k5] K5 launches on the main path: {launches} ({k5.LAUNCHES_PER_CALL} a scan); device "
+    log(f"[k5] K5 launches through the wrapper: {launches} ({k5.LAUNCHES_PER_CALL} a scan); device "
         f"time at mamba2-780m (graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; eager "
         f"call: kernel {call_ms:.5f} ms, plain {plain_call_ms:.5f} ms; bound on the units it "
         f"uses (split TF32, tensor cores) {bound_ms:.5f} ms ({bound_by}), share of bound "
@@ -673,14 +737,244 @@ def phase_k5() -> dict:
     }
 
 
+# ---------------------------------------------------------------- phases 9-12
+MOE_ARCH, PHI_ARCH, SSM_ARCH = "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-780m"
+DENSE_ARCHS = ("glm4-9b", "chatglm3-6b", "starcoder2-15b", "musicgen-large")
+CUT_LAYERS = 4  # depth of the configs held at their widths with fewer layers
+
+
+@contextlib.contextmanager
+def _first_call(module, name: str):
+    """Inside the block, ``module.name`` records the arguments of its first
+    call (into the yielded list) and calls through."""
+    inner = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        if not seen:
+            seen.append(args)
+        return inner(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, inner)
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cut(cfg, **changes):
+    return dataclasses.replace(cfg, num_layers=CUT_LAYERS, **changes)
+
+
+def phase_moe() -> dict:
+    """qwen2-moe-a2.7b at full width through the engine: K3 on every MoE
+    layer of every prefill and decode step, K4 on every prefill's attention;
+    one layer's dispatch held to ``dispatch_ref`` bit for bit and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.dispatch import dispatch as k3
+    from repro_torch.kernels.dispatch.ops import dispatch
+    from repro_torch.kernels.dispatch.ref import dispatch_ref
+    from repro_torch.models import ffn, transformer
+    from repro_torch.models.common import count_active_params, init_params
+
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _made("moe", cfg, t0)
+    log(f"[moe] {cfg.num_experts} experts top-{cfg.top_k} + {cfg.num_shared_experts} shared "
+        f"(expert d_ff {cfg.moe_d_ff}), {count_active_params(cfg) / 1e9:.3f} B active params "
+        "a token")
+    requests = _requests(cfg)
+    _, launches, prefills, steps = _serve_both(
+        "moe", cfg, params, requests, {"K3": dispatch, "K4": flash_attention})
+    L = cfg.num_layers
+    _expect("moe", "K3", launches["K3"], (prefills + steps) * L * k3.LAUNCHES_PER_CALL,
+            f"({prefills} prefills + {steps} decode steps) x {L} layers x "
+            f"{k3.LAUNCHES_PER_CALL}")
+    _expect("moe", "K4", launches["K4"], prefills * L, f"{prefills} prefills x {L} layers")
+
+    # one MoE layer's dispatch as the main path gives it: the first layer of
+    # the longest prompt's prefill
+    prompt = max((p for p, _ in requests), key=len)
+    with _first_call(ffn, "dispatch") as seen, torch.no_grad():
+        transformer.prefill(cfg, params, torch.from_numpy(prompt)[None].long().cuda(), 1024)
+    ids, pay, P, C = seen[0]
+    got, want = k3.dispatch_fwd(ids, pay, P, C), dispatch_ref(ids, pay, P, C)
+    if not all(parity.bits_equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("K3 disagrees with dispatch_ref at qwen2-moe's layer 0")
+    kept = int((got[2] >= 0).sum())
+    ms = graph_time_ms(lambda: k3.dispatch_fwd(ids, pay, P, C), iters=20)
+    plain_ms = graph_time_ms(lambda: dispatch_ref(ids, pay, P, C), iters=20)
+    bound_ms = dispatch_bound(ids.numel(), P, C, pay.shape[1], pay.element_size(), kept)
+    log(f"[moe] layer 0 of the {len(prompt)}-token prefill: K3 at T={ids.numel()} P={P} C={C} "
+        f"W={pay.shape[1]} {str(pay.dtype)[6:]} equals dispatch_ref bit for bit (buffers, "
+        f"counts, dest; {ids.numel() - kept} assignments dropped past capacity); device time "
+        f"(graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+        f"(bytes), share of bound {bound_ms / ms:.4f}")
+    del params, seen, ids, pay, got, want
+    _free()
+
+    # f32 on a cut (full widths, fewer layers): qwen2-moe's f32 parameters
+    # would not fit beside anything
+    cfg32 = _cut(cfg, dtype=torch.float32, param_dtype=torch.float32)
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    _f32_check("moe", cfg32, params32, requests[0])
+    del params32
+    _free()
+    return {"launches": launches["K3"], "K4": launches["K4"], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def _generate_cut(tag, arch, counters, prompt_len=200, steps=16) -> tuple[dict, object]:
+    """One ``generate`` of ``arch`` at its widths with CUT_LAYERS layers
+    (random bf16 weights, seed 0), counts set to 0 just before; returns
+    (launches, cfg)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params
+
+    full = get_config(arch)
+    cfg = _cut(full)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _made(tag, cfg, t0, f" of {full.num_layers}")
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, prompt_len))
+    prompt = prompt[None].long().cuda()
+    for fn in counters.values():
+        fn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = transformer.generate(cfg, params, prompt, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.LAUNCHES for name, fn in counters.items()}
+    toks = out[0].cpu().numpy()
+    if toks.shape != (steps + 1,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise RuntimeError(f"{tag}: {cfg.name} generated {toks.tolist()}")
+    log(f"[{tag}] {cfg.name} ({cfg.num_heads} heads / {cfg.num_kv_heads} kv heads, head dim "
+        f"{cfg.hd}): generate({prompt_len}-token prompt, {steps} steps) in {wall:.3f}s: "
+        f"{toks.tolist()}")
+    del params
+    _free()
+    return launches, cfg
+
+
+def phase_phi() -> tuple[int, int]:
+    """phi3.5-moe at its published widths, CUT_LAYERS of its 32 layers (its
+    78 GiB of parameters do not fit beside a cache): one generate."""
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.dispatch import dispatch as k3
+    from repro_torch.kernels.dispatch.ops import dispatch
+
+    steps = 16
+    launches, cfg = _generate_cut("phi", PHI_ARCH, {"K3": dispatch, "K4": flash_attention},
+                                  steps=steps)
+    L = cfg.num_layers
+    _expect("phi", "K3", launches["K3"], (1 + steps) * L * k3.LAUNCHES_PER_CALL,
+            f"(1 prefill + {steps} decode steps) x {L} layers x {k3.LAUNCHES_PER_CALL}")
+    _expect("phi", "K4", launches["K4"], L, f"1 prefill x {L} layers")
+    return launches["K3"], launches["K4"]
+
+
+def phase_ssm() -> dict:
+    """mamba2-780m at full width through the engine: K5 on every mamba
+    layer of every prefill; one layer's scan held to ``ssd_chunked`` within
+    2e-4 and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd as k5
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.common import init_params
+
+    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _made("ssm", cfg, t0)
+    log(f"[ssm] d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    requests = _requests(cfg)
+    _, launches, prefills, _ = _serve_both(
+        "ssm", cfg, params, requests, {"K5": ssd_ops.ssd, "K4": flash_attention})
+    L = cfg.num_layers
+    _expect("ssm", "K5", launches["K5"], prefills * L * k5.LAUNCHES_PER_CALL,
+            f"{prefills} prefills x {L} layers x {k5.LAUNCHES_PER_CALL}")
+    _expect("ssm", "K4", launches["K4"], 0, "none (attention-free)")
+
+    prompt = max((p for p, _ in requests), key=len)
+    with _first_call(ssm, "ssd") as seen, torch.no_grad():
+        transformer.prefill(cfg, params, torch.from_numpy(prompt)[None].long().cuda(), 1024)
+    (x, dt, A, Bm, Cm), chunk = seen[0], cfg.ssm_chunk
+    got = k5.ssd_fwd(x, dt, A, Bm, Cm, chunk)
+    plain = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    ok, max_err = parity.ssd_close(got, plain, parity.SSD_TOL)
+    log(f"[ssm] layer 0 of the {len(prompt)}-token prefill: K5 at B,L,H,P,N={tuple(x.shape)}"
+        f"+({Bm.shape[-1]},) chunk {chunk} f32 against ssd_chunked: max|err| {max_err:.3g} "
+        f"(tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("K5 disagrees with ssd_chunked at mamba2-780m's layer 0")
+    B, Lx, H, P = x.shape
+    ms = graph_time_ms(lambda: k5.ssd_fwd(x, dt, A, Bm, Cm, chunk), iters=20)
+    plain_ms = graph_time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk), iters=10)
+    bound_ms, bound_by = ssd_bound(B, Lx, H, P, Bm.shape[-1], chunk, 4, units="tensor")
+    log(f"[ssm] device time (graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"on the units it uses {bound_ms:.5f} ms ({bound_by}), share of bound "
+        f"{bound_ms / ms:.4f}")
+    del seen, x, dt, A, Bm, Cm, got, plain
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+    params32 = _tree_map(lambda t: t.float(), params)
+    del params
+    _free()
+    _f32_check("ssm", cfg32, params32, requests[0])
+    del params32
+    _free()
+    return {"launches": launches["K5"], "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_dense() -> int:
+    """The four other dense configs at their widths with CUT_LAYERS layers:
+    one generate each, K4 on every layer of the prefill (GQA groups of 16
+    and 12 among them, held to the plain version in phase 2)."""
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    total = 0
+    for arch in DENSE_ARCHS:
+        launches, cfg = _generate_cut("dense", arch, {"K4": flash_attention})
+        _expect("dense", f"K4 ({cfg.name})", launches["K4"], cfg.num_layers,
+                f"1 prefill x {cfg.num_layers} layers")
+        total += launches["K4"]
+    return total
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
     flash_entry = phase_kernels()
-    flash_entry["launches"] = phase_serving()
+    k4_launches = {"olmo-1b": phase_serving()}
     affine_entry = phase_k1()
     affine_entry["launches"] = phase_stream()
-    entries = [flash_entry, affine_entry, phase_k2(), phase_k3(), phase_k5()]
+    reorder_entry, dispatch_entry, ssd_entry = phase_k2(), phase_k3(), phase_k5()
+    served = phase_moe()
+    k4_launches[MOE_ARCH] = served.pop("K4")
+    dispatch_entry.update(served)
+    k3_phi, k4_launches[PHI_ARCH] = phase_phi()
+    dispatch_entry["launches"] += k3_phi
+    ssd_entry.update(phase_ssm())
+    k4_launches["dense configs"] = phase_dense()
+    flash_entry["launches"] = sum(k4_launches.values())
+    log(f"[main] launches on the main paths: K4 {k4_launches}; K3 {dispatch_entry['launches']} "
+        f"({MOE_ARCH} served, {k3_phi} {PHI_ARCH}); K5 {ssd_entry['launches']} ({SSM_ARCH} "
+        "served); the kernels line gives K3 and K5 at the served layer's shape")
+    entries = [flash_entry, affine_entry, reorder_entry, dispatch_entry, ssd_entry]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,8 @@
 ``get_config(arch_id)`` returns the exact assigned configuration;
 ``smoke_config(arch_id)`` returns a structurally identical reduced config
 small enough for a CPU forward pass.  Architectures whose families are not
-ported yet raise ``KeyError``.
+ported yet (the hybrid jamba and the cross-attention llama-3.2-vision)
+raise ``KeyError``.
 """
 from __future__ import annotations
 
@@ -12,18 +13,18 @@ import importlib
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
+    "glm4-9b": "glm4_9b",
+    "chatglm3-6b": "chatglm3_6b",
+    "starcoder2-15b": "starcoder2_15b",
+    "musicgen-large": "musicgen_large",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 # The JAX package's other architectures; each gets its module with its slice.
 _NOT_YET_PORTED = (
     "llama-3.2-vision-90b",
-    "musicgen-large",
-    "mamba2-780m",
-    "glm4-9b",
-    "starcoder2-15b",
-    "chatglm3-6b",
-    "qwen2-moe-a2.7b",
-    "phi3.5-moe-42b-a6.6b",
     "jamba-1.5-large-398b",
 )
 
@@ -40,7 +41,7 @@ def get_config(arch_id: str):
 
 
 def smoke_config(arch_id: str, num_periods: int = 2):
-    """Reduced config of the same family: small dims, tiny vocab."""
+    """Reduced config of the same family: small dims, few experts, tiny vocab."""
     cfg = get_config(arch_id)
     period = len(cfg.pattern)
     heads = 4 if cfg.num_heads else 0
@@ -60,4 +61,11 @@ def smoke_config(arch_id: str, num_periods: int = 2):
         ssm_chunk=8,
         remat="none",
     )
+    if cfg.num_experts:
+        changes.update(
+            num_experts=min(cfg.num_experts, 8),
+            top_k=min(cfg.top_k, 2),
+            moe_d_ff=64,
+            num_shared_experts=min(cfg.num_shared_experts, 2),
+        )
     return dataclasses.replace(cfg, **changes)

@@ -1,9 +1,14 @@
 """Public K3 wrapper, the hybrid-queue dispatch (counterpart of
 ``repro.kernels.dispatch.ops``).
 
-CPU tensors go to the plain :func:`~.ref.dispatch_ref`; CUDA tensors go to
-kernel K3 or raise.  ``dispatch.LAUNCHES`` counts kernel launches (four per
-call on the card), so a run can show that its path went through the kernel.
+CPU tensors go to the plain :func:`~.ref.dispatch_ref`, which autograd
+differentiates as it is; CUDA tensors go to kernel K3 or raise.  On the card
+the kernel sits in :class:`Dispatch`, a ``torch.autograd.Function`` whose
+backward is the plain gather ``grad_payloads[t] = grad_buffers.flat[dest[t]]``
+(zero where ``dest`` is -1): K3 fills its buffers through ctypes, so without
+it nothing upstream of a dispatch would get a gradient.  ``dispatch.LAUNCHES``
+counts kernel launches (four per call on the card), so a run can show that
+its path went through the kernel; the backward launches no kernel of its own.
 """
 from __future__ import annotations
 
@@ -11,6 +16,27 @@ import torch
 
 from .dispatch import LAUNCHES_PER_CALL, dispatch_fwd
 from .ref import dispatch_ref
+
+
+class Dispatch(torch.autograd.Function):
+    """K3 forward, gather backward; differentiable in ``payloads`` only."""
+
+    @staticmethod
+    def forward(ctx, part_ids, payloads, num_partitions, capacity):
+        buffers, counts, dest = Dispatch.forward_fn(part_ids, payloads, num_partitions, capacity)
+        ctx.save_for_backward(dest)
+        ctx.mark_non_differentiable(counts, dest)
+        return buffers, counts, dest
+
+    @staticmethod
+    def backward(ctx, grad_buffers, _grad_counts, _grad_dest):
+        (dest,) = ctx.saved_tensors
+        flat = grad_buffers.reshape(-1, grad_buffers.shape[-1])
+        keep = (dest >= 0)[:, None]
+        grad = flat[dest.clamp(min=0).long()] * keep.to(flat.dtype)
+        return None, grad, None, None
+
+    forward_fn = staticmethod(dispatch_fwd)  # the kernel; tests swap in the plain version
 
 
 def dispatch(part_ids: torch.Tensor, payloads: torch.Tensor, num_partitions: int,
@@ -23,11 +49,11 @@ def dispatch(part_ids: torch.Tensor, payloads: torch.Tensor, num_partitions: int
     ``use_kernel=False`` takes the plain version on any device."""
     if not use_kernel or payloads.device.type == "cpu":
         return dispatch_ref(part_ids, payloads, num_partitions, capacity)
-    out = dispatch_fwd(part_ids.to(torch.int32), payloads, num_partitions, capacity)
+    out = Dispatch.apply(part_ids.to(torch.int32), payloads, num_partitions, capacity)
     dispatch.LAUNCHES += LAUNCHES_PER_CALL
     return out
 
 
 dispatch.LAUNCHES = 0
 
-__all__ = ["dispatch"]
+__all__ = ["Dispatch", "dispatch"]

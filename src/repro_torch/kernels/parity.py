@@ -46,11 +46,14 @@ SSD_SWEEP = ((1, 128, 2, 64, 128, 64), (2, 256, 4, 64, 128, 128), (1, 512, 2, 12
              (1, 512, 2, 64, 128, 256), (1, 300, 3, 64, 64, 100), (2, 128, 1, 128, 128, 32),
              (1, 2048, 3, 64, 128, 64), (1, 1024, 5, 128, 128, 512))
 SSD_TOL = 2e-4  # tests/test_kernels.py:153-154
-# (B, S, H, Hkv, Dh): olmo-1b's attention (H = Hkv = 16, Dh = 128) at the
-# edges of K4's 64-row tiles and at the longest served prompt, two ragged
-# batches, and GQA at both head widths
+# (B, S, H, Hkv, Dh): olmo-1b's attention (H = Hkv = 16, Dh = 128; also
+# qwen2-moe's) at the edges of K4's 64-row tiles and at the longest served
+# prompt, two ragged batches, GQA at both head widths, and the served dense
+# configs' heads: glm4-9b and chatglm3-6b (32 / 2, G = 16), starcoder2-15b
+# (48 / 4, G = 12), musicgen-large (32 / 32 at Dh = 64)
 FLASH_SWEEP = tuple((1, S, 16, 16, 128) for S in (1, 13, 63, 64, 65, 128, 129, 200, 512)) + (
-    (2, 65, 16, 16, 128), (1, 200, 16, 4, 128), (1, 200, 16, 4, 64))
+    (2, 65, 16, 16, 128), (1, 200, 16, 4, 128), (1, 200, 16, 4, 64), (1, 200, 32, 2, 128),
+    (1, 200, 48, 4, 128), (1, 200, 32, 32, 64))
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 DTYPES = (torch.float32, torch.bfloat16)
 

@@ -10,9 +10,10 @@ Layers are organized in *periods*, the smallest repeating pattern of
 (mixer, ffn) sublayer kinds; per-layer parameters carry a leading
 ``num_periods`` stack dim, as in the JAX package, and the model loops over it.
 
-Only the dense attention + MLP family is ported so far.  The other features
-(``kv_quant``, ``seq_parallel``, the ``xattn``/``mamba`` mixers, ``moe``)
-raise ``NotImplementedError`` rather than compute something else.
+The dense attention + MLP, Mixture-of-Experts (``moe``) and Mamba2
+(``mamba``) families are ported.  The other features (``kv_quant``,
+``seq_parallel``, the ``xattn`` mixer) raise ``NotImplementedError`` rather
+than compute something else.
 """
 from __future__ import annotations
 
@@ -100,6 +101,14 @@ class ModelConfig:
             )
         return self.num_layers // len(self.pattern)
 
+    @property
+    def d_inner(self) -> int:  # mamba2
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def has(self, mixer_or_ffn: str) -> bool:
         return any(mixer_or_ffn in slot for slot in self.pattern)
 
@@ -134,11 +143,7 @@ def check_supported(cfg: ModelConfig) -> None:
     unported = [
         flag for flag in ("kv_quant", "seq_parallel") if getattr(cfg, flag)
     ]
-    unported += [
-        kind
-        for kind in ("xattn", "mamba", "moe")
-        if any(kind in slot for slot in cfg.pattern)
-    ]
+    unported += ["xattn"] if any("xattn" in slot for slot in cfg.pattern) else []
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not yet ported to repro_torch"
@@ -167,6 +172,12 @@ def _norm_defs(cfg: ModelConfig, prefix: str) -> dict:
     return d
 
 
+def _inner_norm_defs(cfg: ModelConfig, prefix: str, dim: int) -> dict:
+    if cfg.norm_type == "nonparametric_ln":
+        return {}
+    return {f"{prefix}_scale": ParamDef((dim,), "ones")}
+
+
 def _attn_defs(cfg: ModelConfig) -> dict:
     D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     defs = {
@@ -191,8 +202,43 @@ def _mlp_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-MIXER_DEFS = {"attn": _attn_defs}
-FFN_DEFS = {"mlp": _mlp_defs, "none": lambda c: {}}
+def _moe_defs(cfg: ModelConfig) -> dict:
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    defs = {
+        "w_router": ParamDef((D, E), dtype=torch.float32),
+        "we_up": ParamDef((E, D, F)),
+        "we_gate": ParamDef((E, D, F)),
+        "we_down": ParamDef((E, F, D), "scaled"),
+    }
+    if cfg.num_shared_experts:
+        Fs = cfg.num_shared_experts * F
+        defs["ws_up"] = ParamDef((D, Fs))
+        defs["ws_gate"] = ParamDef((D, Fs))
+        defs["ws_down"] = ParamDef((Fs, D), "scaled")
+    defs.update(_norm_defs(cfg, "ffn_norm"))
+    return defs
+
+
+def _mamba_defs(cfg: ModelConfig) -> dict:
+    D, Din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = Din + 2 * N  # x, B, C go through the causal conv
+    defs = {
+        # in_proj -> [z (gate), x, B, C, dt]
+        "in_proj": ParamDef((D, 2 * Din + 2 * N + H)),
+        "conv_w": ParamDef((cfg.ssm_conv_kernel, conv_dim)),
+        "conv_b": ParamDef((conv_dim,), "zeros"),
+        "A_log": ParamDef((H,), "ones", dtype=torch.float32),
+        "ssm_D": ParamDef((H,), "ones", dtype=torch.float32),
+        "dt_bias": ParamDef((H,), "zeros", dtype=torch.float32),
+        "out_proj": ParamDef((Din, D), "scaled"),
+    }
+    defs.update(_norm_defs(cfg, "norm"))
+    defs.update(_inner_norm_defs(cfg, "gate_norm", Din))
+    return defs
+
+
+MIXER_DEFS = {"attn": _attn_defs, "mamba": _mamba_defs}
+FFN_DEFS = {"mlp": _mlp_defs, "moe": _moe_defs, "none": lambda c: {}}
 
 
 def slot_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
@@ -268,6 +314,17 @@ def count_params(cfg: ModelConfig) -> int:
     return sum(math.prod(d.shape) for d in param_defs(cfg).values())
 
 
+def count_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only top_k + shared experts count)."""
+    total = 0
+    for name, d in param_defs(cfg).items():
+        n = math.prod(d.shape)
+        if ".we_" in name:  # routed experts: top_k of E active
+            n = n * cfg.top_k // max(cfg.num_experts, 1)
+        total += n
+    return total
+
+
 # --------------------------------------------------------------------------
 # Norm application
 # --------------------------------------------------------------------------
@@ -289,4 +346,16 @@ def apply_norm(cfg: ModelConfig, x: torch.Tensor, params: dict, prefix: str) -> 
     out = out * params[f"{prefix}_scale"].to(x.dtype)
     if f"{prefix}_bias" in params:
         out = out + params[f"{prefix}_bias"].to(x.dtype)
+    return out
+
+
+def inner_norm(x: torch.Tensor, params: dict, prefix: str, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim with an optional ``<prefix>_scale`` (the
+    mamba2 gate norm); fp32 statistics, multiply in the activation dtype."""
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    out = x * r.to(x.dtype)
+    scale = params.get(f"{prefix}_scale")
+    if scale is not None:
+        out = out * scale.to(x.dtype)
     return out

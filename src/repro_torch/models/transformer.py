@@ -2,14 +2,15 @@
 
 Entry points (functions of (cfg, params, ...), parameters as nested dicts of
 tensors with a leading ``num_periods`` dim on every per-layer leaf):
-  forward_train(cfg, params, tokens) -> logits
+  forward_train(cfg, params, tokens) -> (logits, aux_loss)
   prefill(cfg, params, tokens, max_len) -> (last_logits, cache)
   decode_step(cfg, params, token, cache, position) -> (logits, cache)
   generate(cfg, params, prompt, num_steps) -> tokens
 
 The JAX package's ``lax.scan`` over periods is a Python loop here that
-indexes the stacked parameters.  ``decode_step`` writes the new k/v into the
-cache in place and returns the same cache object.
+indexes the stacked parameters.  ``decode_step`` writes the new k/v, and a
+mamba layer's new ssm and conv states, into the cache in place and returns
+the same cache object.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ import torch
 
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import ssm
 from .common import ModelConfig, apply_norm, check_supported
 from .. import default_device
 
-Cache = dict  # {"<slot>": {"k": (nP,B,Hkv,S,Dh), "v": ...}}
+Cache = dict  # {"<slot>": {"k", "v": (nP,B,Hkv,S,Dh)} or {"ssm": (nP,B,H,P,N), "conv": (nP,B,K-1,Cd)}}
 
 
 def _period(tree: dict, i: int) -> dict:
@@ -43,23 +45,34 @@ def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- period bodies
-def apply_period_train(cfg: ModelConfig, h: torch.Tensor, layer_params: dict) -> torch.Tensor:
-    for si, (_mixer, ffn_kind) in enumerate(cfg.pattern):
+def apply_period_train(
+    cfg: ModelConfig, h: torch.Tensor, layer_params: dict
+) -> tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for si, (mixer, ffn_kind) in enumerate(cfg.pattern):
         sp = layer_params[str(si)]
-        h = attn.attn_train(cfg, sp["attn"], h)
-        h = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
-    return h
+        if mixer == "attn":
+            h = attn.attn_train(cfg, sp["attn"], h)
+        elif mixer == "mamba":
+            h = ssm.mamba_train(cfg, sp["mamba"], h)
+        h, a = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
+        aux = aux + a
+    return h, aux
 
 
 def apply_period_prefill(
     cfg: ModelConfig, h: torch.Tensor, layer_params: dict, max_len: int = 0
 ) -> tuple[torch.Tensor, dict]:
     cache_slice: dict = {}
-    for si, (_mixer, ffn_kind) in enumerate(cfg.pattern):
+    for si, (mixer, ffn_kind) in enumerate(cfg.pattern):
         sp = layer_params[str(si)]
-        h, (kc, vc) = attn.attn_prefill(cfg, sp["attn"], h, max_len=max_len)
-        cache_slice[str(si)] = {"k": kc, "v": vc}
-        h = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
+        if mixer == "attn":
+            h, (kc, vc) = attn.attn_prefill(cfg, sp["attn"], h, max_len=max_len)
+            cache_slice[str(si)] = {"k": kc, "v": vc}
+        elif mixer == "mamba":
+            h, (hT, conv) = ssm.mamba_prefill(cfg, sp["mamba"], h)
+            cache_slice[str(si)] = {"ssm": hT, "conv": conv}
+        h, _ = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
     return h, cache_slice
 
 
@@ -71,22 +84,32 @@ def apply_period_decode(
     position: torch.Tensor,
 ) -> torch.Tensor:
     """One period of decode; ``cache_slice`` is updated in place."""
-    for si, (_mixer, ffn_kind) in enumerate(cfg.pattern):
+    for si, (mixer, ffn_kind) in enumerate(cfg.pattern):
         sp = layer_params[str(si)]
         cs = cache_slice[str(si)]
-        h, _ = attn.attn_decode(cfg, sp["attn"], h, (cs["k"], cs["v"]), position)
-        h = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
+        if mixer == "attn":
+            h, _ = attn.attn_decode(cfg, sp["attn"], h, (cs["k"], cs["v"]), position)
+        elif mixer == "mamba":
+            h, (hn, conv) = ssm.mamba_decode(cfg, sp["mamba"], h, (cs["ssm"], cs["conv"]))
+            cs["ssm"].copy_(hn)
+            cs["conv"].copy_(conv)
+        h, _ = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
     return h
 
 
 # --------------------------------------------------------------------- train
-def forward_train(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab) in fp32."""
+def forward_train(
+    cfg: ModelConfig, params: dict, tokens: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, padded_vocab) in fp32, the MoE
+    load-balancing aux loss summed over layers, a scalar)."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_periods):
-        x = apply_period_train(cfg, x, _period(params["layers"], i))
-    return _unembed(cfg, params, x)
+        x, a = apply_period_train(cfg, x, _period(params["layers"], i))
+        aux = aux + a
+    return _unembed(cfg, params, x), aux
 
 
 # -------------------------------------------------------------------- prefill
@@ -127,17 +150,28 @@ def decode_step(
 
 # ---------------------------------------------------------------- cache
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Cache:
-    """Zeroed KV cache (the JAX package's ``abstract_cache``, allocated)."""
+    """Zeroed cache (the JAX package's ``abstract_cache``, allocated): k/v
+    for attention slots, the ssm state (f32) and conv state for mamba slots."""
     check_supported(cfg)
     dev = default_device(device)
-    shape = (cfg.num_periods, batch, cfg.num_kv_heads, max_len, cfg.hd)
-    return {
-        str(si): {
-            "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    nP = cfg.num_periods
+    cache: Cache = {}
+    for si, (mixer, _ffn) in enumerate(cfg.pattern):
+        if mixer == "attn":
+            shape = (nP, batch, cfg.num_kv_heads, max_len, cfg.hd)
+            leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+        else:  # mamba
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+            leaves = {
+                "ssm": ((nP, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                        torch.float32),
+                "conv": ((nP, batch, cfg.ssm_conv_kernel - 1, conv_dim), cfg.dtype),
+            }
+        cache[str(si)] = {
+            name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, (shape, dtype) in leaves.items()
         }
-        for si in range(len(cfg.pattern))
-    }
+    return cache
 
 
 # ------------------------------------------------------------------ greedy gen

@@ -7,10 +7,11 @@ non-blocking reorder ring.  Each iteration the engine chooses between a
 prefill and a decode step, under the ``interleave`` or ``prefill_first``
 schedule.
 
-Where the port differs from the JAX engine: the KV cache and the slot token
-vector live on ``device`` and are updated in place (prefill installs its KV
-with ``copy_``, decode scatters into the cache), instead of being replaced
-by new arrays every step.
+Where the port differs from the JAX engine: the cache (k/v for attention
+layers, the ssm and conv states for mamba layers) and the slot token vector
+live on ``device`` and are updated in place (prefill installs each leaf with
+``copy_``, decode writes into the cache), instead of being replaced by new
+arrays every step.
 """
 from __future__ import annotations
 
@@ -131,7 +132,8 @@ class OrderedServingEngine:
         prompt = torch.from_numpy(req.prompt[None, :]).to(self.device, torch.long)
         logits, cache1 = self._prefill1(self.params, prompt)
         first = int(logits[0].argmax())
-        # install the request's KV into slot b (prefill->decode hand-off)
+        # install the request's cache into slot b (prefill->decode hand-off):
+        # every leaf, k/v or the ssm and conv states, is (nP, batch, ...)
         for si, slot in self.cache.items():
             for name, c in slot.items():
                 c[:, b].copy_(cache1[si][name][:, 0])

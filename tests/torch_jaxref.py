@@ -223,56 +223,131 @@ def abstract_params(name, smoke):
     return shapes, common.count_params(cfg)
 
 
+def count_active_params(name, smoke):
+    from repro.models import common
+
+    return common.count_active_params(_config(name, smoke))
+
+
 @functools.lru_cache(maxsize=None)
-def _model(dtype, seed):
-    """(cfg, params): smoke olmo-1b with dtype and param_dtype ``dtype``
-    (None: the smoke config's own), ``init_params`` at PRNGKey(seed)."""
+def _model(dtype, seed, arch="olmo-1b", capacity_factor=None):
+    """(cfg, params): smoke ``arch`` with dtype and param_dtype ``dtype``
+    (None: the smoke config's own) and ``capacity_factor`` (None: the
+    config's own), ``init_params`` at PRNGKey(seed)."""
     import jax
     from repro.models import common
 
     changes = {} if dtype is None else dict(dtype=dtype, param_dtype=dtype)
-    cfg = _config("olmo-1b", True, **changes)
+    if capacity_factor is not None:
+        changes["capacity_factor"] = capacity_factor
+    cfg = _config(arch, True, **changes)
     return cfg, common.init_params(cfg, jax.random.PRNGKey(seed))
 
 
-def model_params(dtype, seed):
+def model_params(dtype, seed, arch="olmo-1b"):
     """The parameters of :func:`_model` as a nested dict of numpy arrays."""
-    return _np(_model(dtype, seed)[1])
+    return _np(_model(dtype, seed, arch)[1])
 
 
-def transformer_outputs(dtype, toks, max_len):
-    """Smoke olmo-1b (PRNGKey(0)) on tokens (B, S): ``forward_train``
-    logits; ``prefill`` of all but the last token (logits, layer 0's k and
-    v); ``decode_step`` of the last token at position S-1."""
+def transformer_outputs(dtype, toks, max_len, arch="olmo-1b", capacity_factor=None):
+    """Smoke ``arch`` (PRNGKey(0)) on tokens (B, S): ``forward_train``
+    logits and aux; ``prefill`` of all but the last token (logits, cache);
+    ``decode_step`` of the last token at position S-1 (logits, new cache).
+    Caches as {slot: {leaf: array}}."""
     import jax.numpy as jnp
     from repro.models import transformer as tf
 
-    cfg, params = _model(dtype, 0)
+    cfg, params = _model(dtype, 0, arch, capacity_factor)
     jt = jnp.asarray(toks)
     S = toks.shape[1]
-    full, _ = tf.forward_train(cfg, params, jt)
+    full, aux = tf.forward_train(cfg, params, jt)
     logits_p, cache = tf.prefill(cfg, params, jt[:, : S - 1], max_len=max_len)
     pos = jnp.full((toks.shape[0],), S - 1, jnp.int32)
-    logits_d, _ = tf.decode_step(cfg, params, jt[:, S - 1], cache, pos)
-    return _np(dict(full=full, prefill=logits_p, k=cache["0"]["k"], v=cache["0"]["v"],
-                    decode=logits_d))
+    logits_d, cache_d = tf.decode_step(cfg, params, jt[:, S - 1], cache, pos)
+    return _np(dict(full=full, aux=aux, prefill=logits_p, cache=cache, decode=logits_d,
+                    cache_d=cache_d))
 
 
-def generate(dtype, prompt, num_steps):
+def generate(dtype, prompt, num_steps, arch="olmo-1b"):
     import jax.numpy as jnp
     from repro.models import transformer as tf
 
-    cfg, params = _model(dtype, 0)
+    cfg, params = _model(dtype, 0, arch)
     return np.asarray(tf.generate(cfg, params, jnp.asarray(prompt), num_steps=num_steps))
 
 
-def abstract_cache(dtype, batch, max_len):
+def abstract_cache(dtype, batch, max_len, arch="olmo-1b"):
     """[(leaf name, shape, dtype name)] of ``abstract_cache``."""
     from repro.models import transformer as tf
 
-    cfg, _ = _model(dtype, 0)
+    cfg, _ = _model(dtype, 0, arch)
     return [(n, tuple(s.shape), np.dtype(s.dtype).name)
             for n, s in _leaves(tf.abstract_cache(cfg, batch, max_len))]
+
+
+# ----------------------------------------------------------- MoE and mamba2
+def _layer(arch, dtype, capacity_factor, p):
+    """(cfg, p as jax arrays) for one layer of smoke ``arch``."""
+    import jax.numpy as jnp
+
+    changes = dict(dtype=dtype, param_dtype=dtype)
+    if capacity_factor is not None:
+        changes["capacity_factor"] = capacity_factor
+    return _config(arch, True, **changes), {k: jnp.asarray(v) for k, v in p.items()}
+
+
+def moe_layer(arch, dtype, x, p, capacity_factor=None):
+    """The reference ``moe`` on x (B, S, D) with one layer's parameters
+    ``p``: (y, aux), and the routing's ``keep`` mask ((B*S*k,), token-major,
+    choice minor) from ``moe_dispatch_rowwise``."""
+    import math
+
+    import jax
+    import jax.numpy as jnp
+    from repro.models import ffn
+    from repro.models.common import apply_norm
+
+    cfg, jp = _layer(arch, dtype, capacity_factor, p)
+    jx = jnp.asarray(x)
+    y, aux = ffn.moe(cfg, jp, jx)
+    B, S, D = x.shape
+    T, E, k = B * S, cfg.num_experts, cfg.top_k
+    h = apply_norm(cfg, jx, jp, "ffn_norm").reshape(1, T, D)
+    gates = jax.nn.softmax(jnp.einsum("rtd,de->rte", h.astype(jnp.float32), jp["w_router"]), -1)
+    _, top_i = jax.lax.top_k(gates, k)
+    capacity = max(int(math.ceil(T * k / E * cfg.capacity_factor)), 4)
+    _, keep = ffn.moe_dispatch_rowwise(top_i.reshape(1, T * k), E, capacity)
+    return _np((y, aux, keep[0]))
+
+
+def moe_vjp(arch, x, p, g, g_aux, capacity_factor=None):
+    """``jax.vjp`` of the reference ``moe`` (f32) at (x, p) against the
+    cotangents (g for y, g_aux for aux): (dx, {name: dp})."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import ffn
+
+    cfg, jp = _layer(arch, "float32", capacity_factor, p)
+    _, vjp = jax.vjp(lambda x_, p_: ffn.moe(cfg, p_, x_), jnp.asarray(x), jp)
+    return _np(vjp((jnp.asarray(g), jnp.asarray(g_aux, jnp.float32))))
+
+
+def mamba_layer(arch, dtype, x, p, kind, cache=None):
+    """The reference mamba2 block on x with one layer's parameters ``p``:
+    ``train`` -> y; ``prefill`` -> (y, ssm state, conv state); ``decode``
+    (x (B, 1, D), ``cache`` = (ssm state, conv state)) -> (y, ssm, conv)."""
+    import jax.numpy as jnp
+    from repro.models import ssm
+
+    cfg, jp = _layer(arch, dtype, None, p)
+    jx = jnp.asarray(x)
+    if kind == "train":
+        return np.asarray(ssm.mamba_train(cfg, jp, jx))
+    if kind == "prefill":
+        y, (h, conv) = ssm.mamba_prefill(cfg, jp, jx)
+    else:
+        y, (h, conv) = ssm.mamba_decode(cfg, jp, jx, tuple(jnp.asarray(c) for c in cache))
+    return _np((y, h, conv))
 
 
 def apply_norm(norm_type, x, params, dtype):
@@ -294,12 +369,12 @@ def rope(fraction, x, pos):
     return _np((cos, sin, attention.apply_rope(jnp.asarray(x), cos, sin)))
 
 
-def engine_run(seed, requests, schedule, max_slots, max_len):
-    """The JAX ``OrderedServingEngine`` on smoke olmo-1b in f32
+def engine_run(seed, requests, schedule, max_slots, max_len, arch="olmo-1b"):
+    """The JAX ``OrderedServingEngine`` on smoke ``arch`` in f32
     (PRNGKey(seed)): [(serial, tokens)] in egress order, and its stats."""
     from repro.serve.engine import OrderedServingEngine
 
-    cfg, params = _model("float32", seed)
+    cfg, params = _model("float32", seed, arch)
     eng = OrderedServingEngine(cfg, params, max_slots=max_slots, max_len=max_len,
                                schedule=schedule)
     for prompt, n in requests:
