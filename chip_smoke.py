@@ -71,14 +71,21 @@ Phases 6-8 hold each kernel to its plain version with the sweeps of
    parent commit's three-launch K2 is unpacked under ``build/parent/``
    (``git archive``), it is timed beside the new one in turns (A B B A),
    and each of its three launches alone (``launch/bench_reorder.py``).
-7. K3 (``kernels/dispatch/csrc/dispatch.cu``, the hybrid-queue dispatch):
-   held to ``dispatch_ref`` bit for bit on a sweep of six shapes with
-   Zipf-skewed ids, -1s and ids past P, then through
+7. K3 (``kernels/dispatch/csrc/dispatch.cu``, the hybrid-queue dispatch in
+   one launch a call): held to ``dispatch_ref`` bit for
+   bit on ``parity.DISPATCH_SWEEP`` (eight shapes, qwen2-moe's decode and
+   prefill among them) with Zipf-skewed ids, -1s and ids past P, each with
+   one and four tuples a payload row (``group``), then through
    ``ops.dispatch`` on ``kernel_bench``'s shape (T=256, P=16, C=32, W=128
    f32), a Zipf(1.1)-skewed keyed batch (T=16384, P=64, C=512, W=32 f32,
    with -1s; hot partitions overflow and drop) and MoE routing at
    phi3.5-moe's widths (4,096 tokens top-2 of 16 experts, C=640, W=4,096
-   bf16); K3 launched 4 x calls times.  Timed at the MoE shape.
+   bf16, the token rows with group 2, as ``ffn.moe`` calls it); K3 launched
+   once a call.  Then ``launch/bench_dispatch.py``: the served decode and
+   prefill shapes, phi3.5's and the keyed batch; where the parent commit is
+   unpacked under ``build/parent/`` (``git archive``), its K3 beside the new
+   one in turns (A B ... B A); and the gather-then-dispatch route against
+   K3 reading the token rows itself.
 8. K5 (``kernels/ssd/csrc/ssd.cu``, the SSD chunked scan split across
    chunks: chunk states, state passing, chunk outputs, three launches, the
    products as split TF32 on the tensor cores): held to the plain
@@ -100,14 +107,16 @@ before a path is driven and read just after):
 9. MoE: qwen2-moe-a2.7b at full width (the published config, no cuts: 24
    layers, d_model 2048, 60 experts top-4 + 4 shared, vocab 151,936, 14.3 B
    params) through the engine as in phase 3.  K3 must be launched (prefills
-   + decode steps) x 24 x 4 times and K4 prefills x 24.  The dispatch of
-   layer 0 in the 512-token prefill is held to ``dispatch_ref`` bit for bit
-   (buffers, counts, dest) and timed there; then an f32 cut of the model
-   (full widths, 4 layers, the bf16 copy freed first) is served against
-   ``generate``, token for token.
+   + decode steps) x 24 times (one launch a call) and K4 prefills x 24.
+   The dispatch of layer 0 in the 512-token prefill and in the first decode
+   step (four slots), as the served run makes them, is held to
+   ``dispatch_ref`` bit for bit (buffers, counts, dest) and timed at both
+   shapes, beside the parent's K3 where it is unpacked; then an f32 cut of
+   the model (full widths, 4 layers, the bf16 copy freed first) is served
+   against ``generate``, token for token.
 10. phi3.5-moe-42b-a6.6b at its published widths with 4 of its 32 layers
     (78 GiB of parameters do not fit beside a cache): one ``generate``,
-    K3 launched (1 + steps) x 4 x 4 times, K4 4 times.
+    K3 launched (1 + steps) x 4 times, K4 4 times.
 11. SSM: mamba2-780m at full width (48 layers, d_model 1536, 48 heads of
     64, state 128, chunk 256) through the engine.  K5 must be launched
     prefills x 48 x 3 times and K4 never.  The scan of layer 0 in the
@@ -161,6 +170,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _parent(path: str, source: Path) -> str | None:
+    """``path``, the parent commit's copy of the kernel source ``source``
+    unpacked under ``build/parent/``, where it exists and differs from the
+    package's (an unchanged source is not timed against itself)."""
+    if os.path.exists(path) and Path(path).read_bytes() != source.read_bytes():
+        return path
+    return None
+
+
 def attention_bound(B, S, H, Hkv, Dh, dtype, causal) -> tuple[float, str]:
     """Least time for the work: q, k, v read once and o written once against
     the QK^T and PV multiply-adds over the (causal) key pairs."""
@@ -199,6 +217,11 @@ def phase_build() -> None:
     from repro_torch.kernels.ssd import ssd
 
     sources = [flash.SOURCE, affine.SOURCE, reorder.SOURCE, dispatch.SOURCE, ssd.SOURCE]
+    # the parent commit's sources where unpacked; one build per target (an
+    # unchanged source hashes to the package's)
+    parents = [Path(p) for p in (K1_PARENT, K2_PARENT, K3_PARENT, K5_PARENT) if os.path.exists(p)]
+    targets = {_build._target(s) for s in sources}
+    sources += [p for p in parents if _build._target(p) not in targets]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -412,11 +435,12 @@ def phase_k1() -> dict:
         raise RuntimeError("K1 took a pageable host buffer")
 
     # the stream's batch on every route, the parent's route beside the new one
-    parent = Path(K1_PARENT) if os.path.exists(K1_PARENT) else None
+    parent = _parent(K1_PARENT, k1.SOURCE)
     if parent is None:
-        log(f"[k1] the parent's K1 is not unpacked at {os.path.relpath(K1_PARENT, ROOT)}: its "
-            "route (copy in, K1, copy out) is not timed beside the new one")
-    r = bench_affine.compare(parent)
+        log(f"[k1] no parent K1 that differs from the package's is unpacked at "
+            f"{os.path.relpath(K1_PARENT, ROOT)}: its route (copy in, K1, copy out) is not timed "
+            "beside the new one")
+    r = bench_affine.compare(Path(parent) if parent else None)
     log(f"[k1] {bench_affine.card()}")
     for line in bench_affine.report(r):
         log(f"[k1] {line}")
@@ -549,12 +573,12 @@ def phase_k2() -> dict:
     log(f"[k2] one commit at S={S} W={W} f32, K={K} ({per} accepted and emitted), device time "
         f"(graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
         f"(bytes), share of bound {bound_ms / ms:.4f}")
-    if os.path.exists(K2_PARENT):
-        log(f"[k2] against the parent's three-launch K2 ({os.path.relpath(K2_PARENT, ROOT)}):")
+    if _parent(K2_PARENT, k2.SOURCE):
+        log(f"[k2] against the parent's K2 ({os.path.relpath(K2_PARENT, ROOT)}):")
         for line in bench_reorder.report(bench_reorder.compare(["package", K2_PARENT])):
             log(f"[k2] {line}")
     else:
-        log(f"[k2] the parent's three-launch K2 is not unpacked at "
+        log(f"[k2] no parent K2 that differs from the package's is unpacked at "
             f"{os.path.relpath(K2_PARENT, ROOT)}: not timed beside the new one")
     return {
         "name": "reorder_commit", "route": "cuda",
@@ -566,12 +590,8 @@ def phase_k2() -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
-def dispatch_bound(T, P, C, W, itemsize, kept) -> float:
-    """Least time of one dispatch, in ms: the ids and the ``kept`` payload
-    rows (those that land in a buffer) read once, the whole zero-filled
-    buffers, counts and dest written once.  Bytes bound it."""
-    nbytes = T * 4 + kept * W * itemsize + P * C * W * itemsize + P * 4 + T * 4
-    return nbytes / HBM_BYTES_PER_S * 1e3
+K3_PARENT = os.path.join(ROOT, "build", "parent", "src", "repro_torch", "kernels", "dispatch",
+                         "csrc", "dispatch.cu")
 
 
 def phase_k3() -> dict:
@@ -579,6 +599,7 @@ def phase_k3() -> dict:
     from repro_torch.kernels.dispatch import dispatch as k3
     from repro_torch.kernels.dispatch.ops import dispatch
     from repro_torch.kernels.dispatch.ref import dispatch_ref
+    from repro_torch.launch import bench_dispatch
 
     rng = np.random.RandomState(3)
 
@@ -586,59 +607,59 @@ def phase_k3() -> dict:
         return all(parity.bits_equal(a, b) for a, b in zip(got, want))
 
     checks = parity.check_dispatch(k3.dispatch_fwd)
-    log(f"[k3] {checks} sweep cases (T,P,C,W in {parity.DISPATCH_SWEEP}, f32 and bf16, "
-        "Zipf ids with -1s and ids past P) equal dispatch_ref bit for bit (tolerance 0)")
+    log(f"[k3] {checks} sweep cases (T,P,C,W in {parity.DISPATCH_SWEEP}, f32 and bf16, groups "
+        f"{parity.DISPATCH_GROUPS}, Zipf ids with -1s and ids past P) equal dispatch_ref bit for "
+        "bit (tolerance 0)")
 
-    # the main path, through the public wrapper
+    # the main path, through the public wrapper; the MoE batch as ffn.moe
+    # hands it over: the token rows, k assignments a row
     gen = torch.Generator(device="cuda").manual_seed(3)
     tokens, experts, top_k, d_model = 4096, 16, 2, 4096  # phi3.5-moe
-    cap = max(int(np.ceil(tokens * top_k / experts * 1.25)), 4)  # ffn.py:114
-    gates = torch.randn(tokens, experts, generator=gen, device="cuda")
-    moe_ids = gates.topk(top_k, dim=1).indices.to(torch.int32).reshape(-1)
-    hidden = torch.randn(tokens, d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    moe_ids, hidden, cap = bench_dispatch.moe_inputs(tokens, experts, top_k, d_model,
+                                                     torch.bfloat16, gen)
     cases = {
-        "kernel_bench": (torch.from_numpy(rng.randint(-1, 16, 256).astype(np.int32)).cuda(),
-                         torch.randn(256, 128, generator=gen, device="cuda"), 16, 32),
-        "skewed keyed": (torch.from_numpy(parity.zipf_ids(rng, 16384, 64)).cuda(),
-                         torch.randn(16384, 32, generator=gen, device="cuda"), 64, 512),
-        "moe": (moe_ids, hidden.repeat_interleave(top_k, dim=0), experts, cap),
+        "kernel_bench": ((torch.from_numpy(rng.randint(-1, 16, 256).astype(np.int32)).cuda(),
+                          torch.randn(256, 128, generator=gen, device="cuda"), 16, 32), 1),
+        "skewed keyed": ((torch.from_numpy(parity.zipf_ids(rng, 16384, 64)).cuda(),
+                          torch.randn(16384, 32, generator=gen, device="cuda"), 64, 512), 1),
+        "moe": ((moe_ids, hidden, experts, cap), top_k),
     }
     torch.cuda.synchronize()
     dispatch.LAUNCHES = 0
-    outs = {name: dispatch(*args) for name, args in cases.items()}
+    outs = {name: dispatch(*args, group=group) for name, (args, group) in cases.items()}
     launches = dispatch.LAUNCHES
     torch.cuda.synchronize()
-    if launches != k3.LAUNCHES_PER_CALL * len(cases):
-        raise RuntimeError(f"K3 launched {launches} times for {len(cases)} dispatches")
-    for name, args in cases.items():
+    if launches != len(cases):
+        raise RuntimeError(f"K3 launched {launches} times for {len(cases)} dispatches, not one each")
+    for name, (args, group) in cases.items():
         ids, pay, P, C = args
-        if not same(outs[name], dispatch_ref(*args)):
+        if not same(outs[name], dispatch_ref(*args, group=group)):
             raise RuntimeError(f"K3 disagrees with dispatch_ref on the {name} batch")
         counts = outs[name][1]
         dropped = int((outs[name][2] < 0).sum()) - int((ids < 0).sum())
-        log(f"[k3] {name}: T={ids.numel()} P={P} C={C} W={pay.shape[1]} {str(pay.dtype)[6:]}: "
-            f"equal to dispatch_ref bit for bit; counts max {int(counts.max())} min "
-            f"{int(counts.min())}, {dropped} tuples dropped past capacity")
+        log(f"[k3] {name}: T={ids.numel()} P={P} C={C} W={pay.shape[1]} {str(pay.dtype)[6:]} "
+            f"group {group}: equal to dispatch_ref bit for bit; counts max {int(counts.max())} "
+            f"min {int(counts.min())}, {dropped} tuples dropped past capacity")
     if int((outs["skewed keyed"][1] > 512).sum()) == 0:
         raise RuntimeError("the skewed keyed batch overflowed no partition")
-    log(f"[k3] K3 launches through the wrapper: {launches} = {k3.LAUNCHES_PER_CALL} x "
-        f"{len(cases)} dispatches")
+    log(f"[k3] K3 launches through the wrapper: {launches} = {len(cases)} dispatches x 1 launch")
+    del outs, cases, moe_ids, hidden
 
-    ids, pay, P, C = cases["moe"]
-    kept = int((outs["moe"][2] >= 0).sum())
-    ms = graph_time_ms(lambda: k3.dispatch_fwd(ids, pay, P, C), iters=20)
-    plain_ms = graph_time_ms(lambda: dispatch_ref(ids, pay, P, C), iters=20)
-    bound_ms = dispatch_bound(ids.numel(), P, C, pay.shape[1], pay.element_size(), kept)
-    log(f"[k3] MoE dispatch T={ids.numel()} P={P} C={C} W={pay.shape[1]} bf16 ({kept} rows "
-        f"kept), device time "
-        f"(graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
-        f"(bytes), share of bound {bound_ms / ms:.4f}")
+    parent = _parent(K3_PARENT, k3.SOURCE)
+    if parent is None:
+        log(f"[k3] no parent K3 that differs from the package's is unpacked at "
+            f"{os.path.relpath(K3_PARENT, ROOT)}: not timed beside the new one")
+    r = bench_dispatch.compare(parent)
+    log(f"[k3] {bench_dispatch.card()}")
+    for line in bench_dispatch.report(r):
+        log(f"[k3] {line}")
+    phi = r["shapes"]["phi3.5 synthetic"]
     return {
         "name": "dispatch", "route": "cuda",
         "source": os.path.relpath(k3.SOURCE, ROOT), "replaces": K3_REPLACES,
         "launches": launches, "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": None,
+        "ms": phi["ms"]["route: K3 reads h (group k)"], "plain_ms": phi["plain_ms"],
+        "bound_ms": phi["bound_ms"]["fused"], "bound_by": "bytes", "library_ms": None,
     }
 
 
@@ -721,12 +742,12 @@ def phase_k5() -> dict:
         f"call: kernel {call_ms:.5f} ms, plain {plain_call_ms:.5f} ms; bound on the units it "
         f"uses (split TF32, tensor cores) {bound_ms:.5f} ms ({bound_by}), share of bound "
         f"{bound_ms / ms:.4f}; the f32 CUDA-core bound {cuda_ms:.5f} ms ({cuda_by})")
-    if os.path.exists(K5_PARENT):
-        log(f"[k5] against the parent's one-launch K5 ({os.path.relpath(K5_PARENT, ROOT)}):")
+    if _parent(K5_PARENT, k5.SOURCE):
+        log(f"[k5] against the parent's K5 ({os.path.relpath(K5_PARENT, ROOT)}):")
         for line in bench_ssd.report(bench_ssd.compare(["package", K5_PARENT])):
             log(f"[k5] {line}")
     else:
-        log(f"[k5] the parent's one-launch K5 is not unpacked at "
+        log(f"[k5] no parent K5 that differs from the package's is unpacked at "
             f"{os.path.relpath(K5_PARENT, ROOT)}: not timed beside the new one")
     return {
         "name": "ssd_scan", "route": "cuda",
@@ -744,15 +765,16 @@ CUT_LAYERS = 4  # depth of the configs held at their widths with fewer layers
 
 
 @contextlib.contextmanager
-def _first_call(module, name: str):
-    """Inside the block, ``module.name`` records the arguments of its first
-    call (into the yielded list) and calls through."""
+def _first_call(module, name: str, when=lambda *args, **kwargs: True):
+    """Inside the block, ``module.name`` records the (args, kwargs) of its
+    first call for which ``when(*args, **kwargs)`` holds (into the yielded
+    list) and calls through."""
     inner = getattr(module, name)
     seen = []
 
     def spy(*args, **kwargs):
-        if not seen:
-            seen.append(args)
+        if not seen and when(*args, **kwargs):
+            seen.append((args, kwargs))
         return inner(*args, **kwargs)
 
     setattr(module, name, spy)
@@ -774,14 +796,14 @@ def _cut(cfg, **changes):
 def phase_moe() -> dict:
     """qwen2-moe-a2.7b at full width through the engine: K3 on every MoE
     layer of every prefill and decode step, K4 on every prefill's attention;
-    one layer's dispatch held to ``dispatch_ref`` bit for bit and timed."""
+    one layer's dispatch at the prefill and at the decode shape held to
+    ``dispatch_ref`` bit for bit and timed."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import parity
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.dispatch import dispatch as k3
     from repro_torch.kernels.dispatch.ops import dispatch
-    from repro_torch.kernels.dispatch.ref import dispatch_ref
-    from repro_torch.models import ffn, transformer
+    from repro_torch.launch import bench_dispatch
+    from repro_torch.models import ffn
     from repro_torch.models.common import count_active_params, init_params
 
     cfg = get_config(MOE_ARCH)
@@ -792,33 +814,41 @@ def phase_moe() -> dict:
         f"(expert d_ff {cfg.moe_d_ff}), {count_active_params(cfg) / 1e9:.3f} B active params "
         "a token")
     requests = _requests(cfg)
-    _, launches, prefills, steps = _serve_both(
-        "moe", cfg, params, requests, {"K3": dispatch, "K4": flash_attention})
+    # layer 0's dispatch at each served shape, as the served run gives it:
+    # the first call with the longest prompt's tokens (its prefill) and the
+    # first with the four slots' (a decode step)
+    prompt_len = max(len(p) for p, _ in requests)
+
+    def tuples(n):
+        return lambda ids, *args, **kwargs: ids.numel() == n * cfg.top_k
+
+    with _first_call(ffn, "dispatch", tuples(prompt_len)) as seen, \
+            _first_call(ffn, "dispatch", tuples(4)) as seen_decode:
+        _, launches, prefills, steps = _serve_both(
+            "moe", cfg, params, requests, {"K3": dispatch, "K4": flash_attention})
     L = cfg.num_layers
-    _expect("moe", "K3", launches["K3"], (prefills + steps) * L * k3.LAUNCHES_PER_CALL,
-            f"({prefills} prefills + {steps} decode steps) x {L} layers x "
-            f"{k3.LAUNCHES_PER_CALL}")
+    _expect("moe", "K3", launches["K3"], (prefills + steps) * L,
+            f"({prefills} prefills + {steps} decode steps) x {L} layers x 1 launch")
     _expect("moe", "K4", launches["K4"], prefills * L, f"{prefills} prefills x {L} layers")
 
-    # one MoE layer's dispatch as the main path gives it: the first layer of
-    # the longest prompt's prefill
-    prompt = max((p for p, _ in requests), key=len)
-    with _first_call(ffn, "dispatch") as seen, torch.no_grad():
-        transformer.prefill(cfg, params, torch.from_numpy(prompt)[None].long().cuda(), 1024)
-    ids, pay, P, C = seen[0]
-    got, want = k3.dispatch_fwd(ids, pay, P, C), dispatch_ref(ids, pay, P, C)
-    if not all(parity.bits_equal(a, b) for a, b in zip(got, want)):
-        raise RuntimeError("K3 disagrees with dispatch_ref at qwen2-moe's layer 0")
-    kept = int((got[2] >= 0).sum())
-    ms = graph_time_ms(lambda: k3.dispatch_fwd(ids, pay, P, C), iters=20)
-    plain_ms = graph_time_ms(lambda: dispatch_ref(ids, pay, P, C), iters=20)
-    bound_ms = dispatch_bound(ids.numel(), P, C, pay.shape[1], pay.element_size(), kept)
-    log(f"[moe] layer 0 of the {len(prompt)}-token prefill: K3 at T={ids.numel()} P={P} C={C} "
-        f"W={pay.shape[1]} {str(pay.dtype)[6:]} equals dispatch_ref bit for bit (buffers, "
-        f"counts, dest; {ids.numel() - kept} assignments dropped past capacity); device time "
-        f"(graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
-        f"(bytes), share of bound {bound_ms / ms:.4f}")
-    del params, seen, ids, pay, got, want
+    parent = _parent(K3_PARENT, k3.SOURCE)
+    other = bench_dispatch.source_dispatch(Path(parent)) if parent else None
+    served = {}
+    for label, ((ids, h, P, C), kw) in ((f"layer 0 of the {prompt_len}-token prefill", seen[0]),
+                                        ("layer 0 of a decode step, 4 slots", seen_decode[0])):
+        served[label] = bench_dispatch.compare_case(ids, h, P, C, kw["group"], other)
+    log(f"[moe] K3 at the served shapes equals dispatch_ref bit for bit (buffers, counts, dest) "
+        f"on every route; {bench_dispatch.card()}:")
+    for line in bench_dispatch.report({"other": K3_PARENT if other else None, "shapes": served}):
+        log(f"[moe] {line}")
+    pre = served[f"layer 0 of the {prompt_len}-token prefill"]
+    ms, plain_ms = pre["ms"]["route: K3 reads h (group k)"], pre["plain_ms"]
+    bound_ms = pre["bound_ms"]["fused"]
+    log(f"[moe] the kernels line gives K3 at the prefill shape (T={pre['T']} P={pre['P']} "
+        f"C={pre['C']} W={pre['W']}, {pre['T'] - pre['kept']} assignments dropped past capacity), "
+        f"reading h: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms (bytes), "
+        f"share of bound {bound_ms / ms:.4f}")
+    del params, seen, seen_decode, ids, h
     _free()
 
     # f32 on a cut (full widths, fewer layers): qwen2-moe's f32 parameters
@@ -869,15 +899,14 @@ def phase_phi() -> tuple[int, int]:
     """phi3.5-moe at its published widths, CUT_LAYERS of its 32 layers (its
     78 GiB of parameters do not fit beside a cache): one generate."""
     from repro_torch.kernels.attention.ops import flash_attention
-    from repro_torch.kernels.dispatch import dispatch as k3
     from repro_torch.kernels.dispatch.ops import dispatch
 
     steps = 16
     launches, cfg = _generate_cut("phi", PHI_ARCH, {"K3": dispatch, "K4": flash_attention},
                                   steps=steps)
     L = cfg.num_layers
-    _expect("phi", "K3", launches["K3"], (1 + steps) * L * k3.LAUNCHES_PER_CALL,
-            f"(1 prefill + {steps} decode steps) x {L} layers x {k3.LAUNCHES_PER_CALL}")
+    _expect("phi", "K3", launches["K3"], (1 + steps) * L,
+            f"(1 prefill + {steps} decode steps) x {L} layers x 1 launch")
     _expect("phi", "K4", launches["K4"], L, f"1 prefill x {L} layers")
     return launches["K3"], launches["K4"]
 
@@ -912,7 +941,7 @@ def phase_ssm() -> dict:
     prompt = max((p for p, _ in requests), key=len)
     with _first_call(ssm, "ssd") as seen, torch.no_grad():
         transformer.prefill(cfg, params, torch.from_numpy(prompt)[None].long().cuda(), 1024)
-    (x, dt, A, Bm, Cm), chunk = seen[0], cfg.ssm_chunk
+    (x, dt, A, Bm, Cm), chunk = seen[0][0], cfg.ssm_chunk
     got = k5.ssd_fwd(x, dt, A, Bm, Cm, chunk)
     plain = ssd_chunked(x, dt, A, Bm, Cm, chunk)
     ok, max_err = parity.ssd_close(got, plain, parity.SSD_TOL)

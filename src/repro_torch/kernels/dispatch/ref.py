@@ -23,10 +23,14 @@ import torch
 
 
 def dispatch_ref(part_ids: torch.Tensor, payloads: torch.Tensor, num_partitions: int,
-                 capacity: int):
+                 capacity: int, group: int = 1):
     """part_ids (T,) int32, -1 (or any id outside [0, P)) = invalid;
-    payloads (T, W).  Returns (buffers (P, C, W) in the payloads' dtype,
-    counts (P,) int32, dest (T,) int32)."""
+    payloads (T / group, W): tuple t's payload is row ``t // group``, as if
+    the rows were ``payloads.repeat_interleave(group, 0)``.  Returns
+    (buffers (P, C, W) in the payloads' dtype, counts (P,) int32, dest (T,)
+    int32)."""
+    if group != 1:  # each row `group` times; autograd sums the group's rows
+        payloads = payloads[:, None].expand(-1, group, -1).reshape(-1, payloads.shape[1])
     T, W = payloads.shape
     P, C = num_partitions, capacity
     part_ids = part_ids.to(torch.int32)

@@ -35,9 +35,13 @@ REORDER_SWEEP = ((8, 128), (64, 128), (32, 256), (1000, 3))  # (S, W) of the dra
 REORDER_CASES = ("tiles and a full ring", "int32 window wrap", "wrapped states")
 INT32_MAX = 2**31 - 1
 # (T, P, C, W): the reference tests' shapes, then odd widths, a skewed keyed
-# batch that overflows, and one slot per partition at the largest P
+# batch that overflows, one slot per partition at the largest P, and
+# qwen2-moe's served shapes (60 experts, d_model 2048): a decode step of four
+# slots (4 tokens top-4, C = 4) and a 512-token prefill (C = 43)
 DISPATCH_SWEEP = ((64, 8, 16, 128), (128, 4, 8, 128), (32, 16, 4, 256), (1000, 7, 50, 3),
-                  (16384, 64, 512, 32), (300, 1024, 1, 5))
+                  (16384, 64, 512, 32), (300, 1024, 1, 5), (16, 60, 4, 2048),
+                  (2048, 60, 43, 2048))
+DISPATCH_GROUPS = (1, 4)  # tuples a payload row (4: the MoE layer's top-4 choices a token)
 # (B, L, H, P, N, chunk): the reference tests' shapes, chunk=256, a chunk
 # that is no multiple of the 64-row tile, a short one, 32 chunks through
 # the state passing, and the longest chunk at P = N = 128 with a head count
@@ -291,23 +295,27 @@ def check_reorder(commit_fn, device="cuda", seed: int = 0) -> int:
 
 
 def check_dispatch(dispatch_fn, device="cuda", seed: int = 1) -> int:
-    """:data:`DISPATCH_SWEEP`, f32 and bf16, Zipf-skewed ids with -1s and
-    some ids past P, through ``dispatch_fn(ids, payloads, P, C)`` and
-    ``dispatch_ref``; buffers, counts and dest equal bit for bit.  Returns
-    the number of cases."""
+    """:data:`DISPATCH_SWEEP`, f32 and bf16, each group of
+    :data:`DISPATCH_GROUPS`, Zipf-skewed ids with -1s and some ids past P,
+    through ``dispatch_fn(ids, payloads, P, C, group=group)`` (payloads
+    (T / group, W)) and ``dispatch_ref``; buffers, counts and dest equal bit
+    for bit.  Returns the number of cases."""
     rng = np.random.RandomState(seed)
     cases = 0
     for T, P, C, W in DISPATCH_SWEEP:
         for dtype in DTYPES:
-            ids = zipf_ids(rng, T, P)
-            past = rng.rand(T) < 0.02
-            ids[past] = P + rng.randint(0, 5, int(past.sum()))  # invalid too
-            ids = torch.from_numpy(ids).to(device)
-            pay = torch.from_numpy(rng.standard_normal((T, W))).to(device, dtype)
-            got = dispatch_fn(ids, pay, P, C)
-            if not all(bits_equal(a, b) for a, b in zip(got, dispatch_ref(ids, pay, P, C))):
-                raise RuntimeError(f"K3 disagrees with dispatch_ref at T,P,C,W={T, P, C, W} {dtype}")
-            cases += 1
+            for group in DISPATCH_GROUPS:
+                ids = zipf_ids(rng, T, P)
+                past = rng.rand(T) < 0.02
+                ids[past] = P + rng.randint(0, 5, int(past.sum()))  # invalid too
+                ids = torch.from_numpy(ids).to(device)
+                pay = torch.from_numpy(rng.standard_normal((T // group, W))).to(device, dtype)
+                got = dispatch_fn(ids, pay, P, C, group=group)
+                want = dispatch_ref(ids, pay, P, C, group=group)
+                if not all(bits_equal(a, b) for a, b in zip(got, want)):
+                    raise RuntimeError(f"K3 disagrees with dispatch_ref at T,P,C,W={T, P, C, W} "
+                                       f"{dtype} group {group}")
+                cases += 1
     return cases
 
 

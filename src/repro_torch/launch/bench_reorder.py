@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 from pathlib import Path
 
 import torch
@@ -31,7 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.parity import bits_equal
 from repro_torch.kernels.reorder import reorder as k2
 from repro_torch.kernels.reorder.ref import ReorderState, commit_ref, init_state
-from repro_torch.launch.timing import graph_time_ms
+from repro_torch.launch.timing import card, graph_time_ms
 
 RING, WIDTH, BATCH = 16384, 128, 512
 # the three-launch entry: serials, K, payloads, buf, present, next, S,
@@ -180,11 +179,6 @@ def compare(sources, gen: torch.Generator | None = None) -> dict:
     return {"ms": {n: sum(t) / len(t) for n, t in turns.items()}, "turns_ms": turns,
             "launches_per_call": {n: launches_per_call(p) for n, p in paths.items()},
             "three_launch_split_ms": split, "accepted_and_emitted": per}
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> dict:

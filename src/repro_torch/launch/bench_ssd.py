@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 from pathlib import Path
 
 import torch
@@ -31,7 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.parity import SSD_TOL, ssd_close
 from repro_torch.kernels.ssd import ssd as k5
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
-from repro_torch.launch.timing import graph_time_ms, time_ms
+from repro_torch.launch.timing import card, graph_time_ms, time_ms
 
 MAIN = (1, 2048, 48, 64, 128, 256)  # mamba2-780m: B, L, H, P, N, chunk
 STEPS = ("chunk states", "state passing", "chunk outputs")
@@ -119,11 +118,6 @@ def compare(sources, gen: torch.Generator | None = None, shape=MAIN) -> dict:
             "eager_ms": {n: sum(t) / len(t) for n, t in eager.items()}, "eager_turns_ms": eager,
             "launches_per_call": {n: launches_per_call(p) for n, p in paths.items()},
             "steps_alone_ms": alone}
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def report(r: dict) -> list[str]:

@@ -39,7 +39,7 @@ from repro_torch.models.common import init_params
 from repro_torch.serve.engine import OrderedServingEngine
 
 PROMPT_LENS = (17, 128, 200, 333, 512, 64, 45, 300)
-_K3 = re.compile(r"(?<![\w])(rank|scan|dest|fill)_kernel(?![\w])")  # csrc/dispatch.cu
+_K3 = re.compile(r"(?<![\w])dispatch_one_kernel(?![\w])")  # csrc/dispatch.cu
 _K5 = re.compile(r"(?<![\w])ssd_(state|pass|out)_kernel(?![\w])")  # csrc/ssd.cu
 COUNTERS = {"K3 dispatch": dispatch, "K4 flash_fwd": flash_attention, "K5 ssd": ssd}
 

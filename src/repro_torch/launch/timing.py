@@ -3,9 +3,12 @@
 :func:`time_ms` times back-to-back eager calls, so a call shorter than its
 own host launch cost is measured at that cost; :func:`graph_time_ms` replays
 the calls captured in one CUDA graph, which leaves only device time.  Both
-need a card.
+need a card.  :func:`card` gives the card's name and power limit, to print
+beside every time.
 """
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -47,3 +50,10 @@ def graph_time_ms(fn, iters: int = 100, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def card() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

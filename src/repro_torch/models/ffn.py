@@ -4,7 +4,10 @@
 The MoE dispatch is the paper's hybrid queue (§4.3): each (token, choice)
 assignment is routed to its expert in arrival order (token-major, choice
 minor) with a per-expert capacity, through ``kernels.dispatch.ops.dispatch``:
-kernel K3 on the card, the plain ``dispatch_ref`` on the CPU.  (The JAX
+kernel K3 on the card, the plain ``dispatch_ref`` on the CPU.  Both take the
+token rows with ``group=k`` (assignment t is row t // k), and K3 reads each
+assignment's row itself, where the JAX package first gathers the rows
+(``h[token_of]``); the buffers are the same.  (The JAX
 package ranks with a stable sort in ``moe_dispatch_rowwise``; both keep
 arrival order within an expert, so the same assignments are dropped.  K3
 marks a dropped assignment -1 where the reference uses ``E*C``, and the
@@ -62,8 +65,9 @@ def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch
     aux = E * torch.sum(gates.mean(0) * ce)
 
     capacity = moe_capacity(cfg, T)
-    token_of = torch.arange(T * k, device=x.device) // k
-    buf, _, dest = dispatch(ids, h[token_of], E, capacity)  # (E, C, D): K3 on the card
+    # (E, C, D): K3 on the card, which reads assignment t's row h[t // k]
+    # itself (group=k), so no gathered copy of h is made
+    buf, _, dest = dispatch(ids, h, E, capacity, group=k)
     up = torch.bmm(buf, p["we_up"])
     gate = torch.bmm(buf, p["we_gate"])
     out_flat = torch.bmm(F.silu(gate) * up, p["we_down"]).reshape(E * capacity, D)

@@ -8,6 +8,8 @@ JAX side runs in a spawned child (``torch_jaxref``), never in this process.
 On the CPU the wrapper takes the plain version; K3 itself runs only on the
 card (``cuda`` marker).
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -16,8 +18,9 @@ torch = pytest.importorskip("torch")
 from torch_jaxref import Reference, bf16
 from repro_torch.kernels import parity
 from repro_torch.kernels.dispatch import dispatch as k3
-from repro_torch.kernels.dispatch.ops import dispatch
+from repro_torch.kernels.dispatch.ops import Dispatch, dispatch
 from repro_torch.kernels.dispatch.ref import dispatch_ref
+from repro_torch.launch import bench_dispatch, profile_serve
 from repro_torch.models.convert import tensor_from_numpy
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -135,10 +138,11 @@ def test_ids_past_the_partitions_are_invalid():
 def test_parity_check_passes_the_plain_version_and_catches_a_wrong_kernel():
     """``parity.check_dispatch`` (run on the card against K3) accepts a
     dispatch equal to the plain version and raises on one that differs."""
-    assert parity.check_dispatch(dispatch, device="cpu") == 2 * len(parity.DISPATCH_SWEEP)
+    assert parity.check_dispatch(dispatch, device="cpu") == (
+        2 * len(parity.DISPATCH_GROUPS) * len(parity.DISPATCH_SWEEP))
 
-    def wrong(ids, payloads, P, C):
-        buf, counts, dest = dispatch_ref(ids, payloads, P, C)
+    def wrong(ids, payloads, P, C, group=1):
+        buf, counts, dest = dispatch_ref(ids, payloads, P, C, group)
         return buf, counts, torch.where(dest >= 0, dest, -2)
 
     with pytest.raises(RuntimeError, match="K3 disagrees"):
@@ -177,10 +181,222 @@ def test_kernel_binding_refuses_cpu_tensors():
         k3.dispatch_fwd(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 8), 2, 2)
 
 
-@pytest.mark.cuda
-def test_dispatch_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("T,rows,group", [(16, 16, 4), (16, 8, 4), (15, 5, 2), (16, 4, 0)])
+def test_kernel_binding_rejects_a_group_that_does_not_fit(T, rows, group):
+    """Tuple t takes payload row t // group: the payloads must have exactly
+    T / group rows, and group must divide T."""
+    with pytest.raises(ValueError, match="group|payloads"):
+        k3.check_inputs(torch.zeros(T, dtype=torch.int32), torch.zeros(rows, 8), 4, 4, group)
+
+
+# ------------------------------------------------ group: rows read in place
+def _routed(rng, tokens, k, P):
+    """(ids (tokens*k,) int32 token-major and choice minor, the top-k of
+    random gates, with a few -1s)."""
+    ids = np.argsort(rng.standard_normal((tokens, P)), axis=1)[:, :k].astype(np.int32).reshape(-1)
+    ids[rng.rand(ids.size) < 0.05] = -1
+    return ids
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_takes_each_row_for_its_k_tuples(k, dtype):
+    """``dispatch_ref(ids, h, P, C, group=k)`` is ``dispatch_ref`` on
+    ``h.repeat_interleave(k, 0)`` bit for bit (and so is the wrapper on the
+    CPU), and equals the JAX ``dispatch_ref`` on the repeated rows; tight
+    capacity drops assignments."""
+    rng = np.random.RandomState(20 + k)
+    tokens, P, W = 40, 8, 64
+    C = max(int(np.ceil(tokens * k / P * 0.5)), 4)
+    ids = _routed(rng, tokens, k, P)
+    h_np = _payloads(rng, tokens, W, dtype)
+    h = tensor_from_numpy(h_np, "cpu")
+    got = dispatch_ref(torch.from_numpy(ids), h, P, C, group=k)
+    want = dispatch_ref(torch.from_numpy(ids), h.repeat_interleave(k, 0), P, C)
+    for a, b, c in zip(got, want, dispatch(torch.from_numpy(ids), h, P, C, group=k)):
+        assert parity.bits_equal(a, b) and parity.bits_equal(a, c)
+    assert (got[1] > C).any()  # some expert overflows
+    (buf_r, counts_r, dest_r), _ = JAX("dispatch", ids, np.repeat(h_np, k, axis=0), P, C,
+                                       pallas=False)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(counts_r))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(dest_r))
+    np.testing.assert_array_equal(_bits(got[0]), _bits(buf_r))
+
+
+def test_dispatch_function_backward_sums_each_rows_group():
+    """With ``group`` k the backward of K3's Function gives each payload row
+    the sum of its k tuples' gathered gradients, in a fixed order, and equals
+    autograd through the plain version."""
+    ids = torch.tensor([1, 0, 1, 1, -1, 0, 1, 0], dtype=torch.int32)
+    h = torch.arange(8, dtype=torch.float32).reshape(4, 2).requires_grad_()
+    gbuf = torch.arange(1, 9, dtype=torch.float32).reshape(2, 2, 2)
+    orig = Dispatch.forward_fn
+    try:
+        Dispatch.forward_fn = staticmethod(dispatch_ref)
+        buf, counts, dest = Dispatch.apply(ids, h, 2, 2, 2)
+    finally:
+        Dispatch.forward_fn = staticmethod(orig)
+    assert dest.tolist() == [2, 0, 3, -1, -1, 1, -1, -1] and counts.tolist() == [3, 4]
+    buf.backward(gbuf)
+    rows = [gbuf.reshape(4, 2)[d] if d >= 0 else torch.zeros(2) for d in dest.tolist()]
+    want = torch.stack([rows[2 * i] + rows[2 * i + 1] for i in range(4)])
+    assert torch.equal(h.grad, want)
+    h2 = h.detach().clone().requires_grad_()
+    dispatch_ref(ids, h2, 2, 2, group=2)[0].backward(gbuf)
+    assert torch.equal(h.grad, h2.grad)
+
+
+# ---------------------------------------------------- launches and profile
+@pytest.mark.parametrize("launches", [k3.LAUNCHES_PER_CALL, 4])
+def test_bench_reads_either_c_entry(monkeypatch, launches):
+    """``bench_dispatch.source_dispatch`` tells a K3 source's C entry by its
+    ``dispatch_launches_per_call()``: this package's own (one launch, with
+    ``group``), or the four-launch one from before (scratch from the
+    caller), and passes each its own arguments, one per ctypes type."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def dispatch_launches_per_call():
+            return launches
+
+    def entry(source, symbol, argtypes, constants=()):
+        assert source == k3.SOURCE and symbol == "dispatch_launch"
+        return argtypes
+
+    monkeypatch.setattr(bench_dispatch._build, "load", lambda source: Lib)
+    monkeypatch.setattr(bench_dispatch._build, "entry", entry)
+    monkeypatch.setattr(bench_dispatch._build, "launch",
+                        lambda fn, dev, *args: calls.append((fn, args)))
+    call, got = bench_dispatch.source_dispatch(k3.SOURCE)
+    assert got == launches
+    T, W, P, C = 12, 6, 3, 5
+    buf, counts, dest = call(torch.zeros(T, dtype=torch.int32), torch.zeros(T, W), P, C)
+    assert buf.shape == (P, C, W) and counts.shape == (P,) and dest.shape == (T,)
+    (argtypes, args), = calls
+    assert len(args) == len(argtypes)
+    if launches == 1:
+        assert argtypes == k3._ARGTYPES
+        assert args[1:7] == (T, args[2], 1, W * 4, P, C)  # T, payloads, group 1, row bytes
+    else:
+        assert argtypes == bench_dispatch._FOUR_LAUNCH_ARGTYPES
+        assert args[1] == T and args[3:6] == (W * 4, P, C)
+
+
+def _global_kernels(source: str) -> list[str]:
+    """The names of the ``__global__`` functions of a CUDA source."""
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                      source)
+
+
+def test_profile_groups_every_kernel_of_the_source_as_k3():
+    """``profile_serve`` finds K3's device time by kernel name: every
+    ``__global__`` function of ``dispatch.cu``, as the profiler names it,
+    falls in the K3 group, and none of K5's or a product's does."""
+    names = _global_kernels(k3.SOURCE.read_text())
+    assert names == ["dispatch_one_kernel"]
+    for name in names:
+        shown = f"void (anonymous namespace)::{name}<uint4>(int const*, int, uint4 const*)"
+        assert profile_serve._group(shown) == "K3 dispatch", name
+    assert profile_serve._group("void (anonymous namespace)::ssd_state_kernel(float)") == "K5 ssd"
+    assert profile_serve._group("sm90_xmma_gemm_bf16bf16_bf16f32") == "matrix products"
+    assert profile_serve._group("void at::native::fill_kernel(float)") == "other"
+
+
+def test_bench_dispatch_case_on_the_plain_version(monkeypatch):
+    """``bench_dispatch.compare_case`` (run on the card) with the plain
+    version in place of each build and a stand-in clock: every route checked
+    bit for bit, the launches and the bounds (the fused route reads each
+    kept token's row once)."""
+    def plain(ids, pay, P, C, group=1):
+        return dispatch_ref(ids, pay, P, C, group)
+
+    monkeypatch.setattr(k3, "dispatch_fwd", plain)
+    monkeypatch.setattr(bench_dispatch, "graph_time_ms", lambda fn, iters: (fn(), 0.5)[1])
+    rng = np.random.RandomState(9)
+    tokens, k, P, C, W = 32, 4, 6, 8, 16
+    ids = torch.from_numpy(_routed(rng, tokens, k, P))
+    h = torch.from_numpy(rng.standard_normal((tokens, W)).astype(np.float32))
+    other = (lambda i, pay, P_, C_: dispatch_ref(i, pay, P_, C_), 4)
+    r = bench_dispatch.compare_case(ids, h, P, C, k, other)
+    assert sorted(r["ms"]) == sorted(["K3", "other K3", "route: gather + other K3",
+                                      "route: gather + K3", "route: K3 reads h (group k)"])
+    assert all(len(t) == 2 for t in r["turns_ms"].values())
+    assert r["launches"]["K3"] == 1 and r["launches"]["other K3"] == 4
+    assert r["launches"]["route: K3 reads h (group k)"] == 1
+    dest = dispatch_ref(ids, h, P, C, k)[2]
+    kept = dest >= 0
+    assert r["kept"] == int(kept.sum())
+    size = 4 * W
+    rows_fused = len(set((torch.nonzero(kept).flatten() // k).tolist()))
+    fixed = ids.numel() * 8 + P * C * size + P * 4  # ids, dest, buffers, counts
+    assert r["bound_ms"]["fused"] == pytest.approx((fixed + rows_fused * size) / 3.35e12 * 1e3)
+    assert r["bound_ms"]["gathered"] == pytest.approx((fixed + r["kept"] * size) / 3.35e12 * 1e3)
+    lines = bench_dispatch.report({"other": "parent", "shapes": {"case": r}})
+    assert len(lines) == 2 + len(r["ms"])
+
+    def wrong(i, pay, P_, C_):
+        buf, counts, d = dispatch_ref(i, pay, P_, C_)
+        return buf, counts + 1, d
+
+    with pytest.raises(RuntimeError, match="other K3 disagrees"):
+        bench_dispatch.compare_case(ids, h, P, C, k, (wrong, 4))
+
+
+# ------------------------------------------------------------- on the card
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (K3 is a CUDA kernel with no CPU mode)")
+
+
+@pytest.mark.cuda
+def test_dispatch_kernel_matches_plain_on_card():
+    """K3 through the wrapper over the sweep, one and four tuples a row,
+    bit for bit; one launch a call."""
+    _need_card()
     before = dispatch.LAUNCHES
     cases = parity.check_dispatch(dispatch)
+    assert k3.LAUNCHES_PER_CALL == 1
     assert dispatch.LAUNCHES == before + k3.LAUNCHES_PER_CALL * cases
+
+
+@pytest.mark.cuda
+def test_dispatch_kernel_at_the_tuple_limit_on_card():
+    """A call of MAX_TUPLES tuples, four a row, through the wrapper: one
+    launch, bit for bit; one more tuple is refused."""
+    _need_card()
+    rng = np.random.RandomState(6)
+    T = k3.MAX_TUPLES
+    ids = torch.from_numpy(parity.zipf_ids(rng, T, 32)).cuda()
+    h = torch.from_numpy(rng.standard_normal((T // 4, 24)).astype(np.float32)).cuda()
+    before = dispatch.LAUNCHES
+    got = dispatch(ids, h, 32, 16384, group=4)
+    assert dispatch.LAUNCHES == before + 1
+    assert all(parity.bits_equal(a, b) for a, b in zip(got, dispatch_ref(ids, h, 32, 16384, 4)))
+    with pytest.raises(ValueError, match="tuples"):
+        dispatch(torch.zeros(T + 4, dtype=torch.int32, device="cuda"),
+                 torch.zeros((T + 4) // 4, 24, device="cuda"), 32, 16384, group=4)
+
+
+@pytest.mark.cuda
+def test_dispatch_function_gradients_match_plain_on_card():
+    """K3's Function with ``group`` k on the card: buffers and the gradient
+    with respect to the token rows equal autograd through the plain version
+    bit for bit in f32, with drops."""
+    _need_card()
+    rng = np.random.RandomState(8)
+    for k in (1, 2, 4):
+        tokens, P, W = 64, 8, 32
+        C = max(int(np.ceil(tokens * k / P * 0.5)), 4)
+        ids = torch.from_numpy(_routed(rng, tokens, k, P)).cuda()
+        h = torch.from_numpy(rng.standard_normal((tokens, W)).astype(np.float32)).cuda()
+        g = torch.from_numpy(rng.standard_normal((P, C, W)).astype(np.float32)).cuda()
+        grads = []
+        for route in (lambda x: dispatch(ids, x, P, C, group=k),
+                      lambda x: dispatch(ids, x, P, C, group=k, use_kernel=False)):
+            x = h.clone().requires_grad_()
+            buf = route(x)[0]
+            buf.backward(g)
+            grads.append((buf.detach(), x.grad))
+        assert parity.bits_equal(grads[0][0], grads[1][0])
+        assert parity.bits_equal(grads[0][1], grads[1][1])

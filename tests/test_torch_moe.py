@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from torch_jaxref import Reference, bf16
 from torch_parity import BF16_REL, F32_REL, check_transformer, close, period0, tokens
 from repro_torch.configs import smoke_config
+from repro_torch.kernels.dispatch import dispatch as k3
 from repro_torch.kernels.dispatch import ops as dispatch_ops
 from repro_torch.kernels.dispatch.ops import Dispatch
 from repro_torch.kernels.dispatch.ref import dispatch_ref
@@ -104,6 +105,28 @@ def test_moe_drops_the_same_assignments(arch, monkeypatch):
     close(aux.numpy(), want_aux, F32_REL)
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_hands_k3_the_token_rows(arch, monkeypatch):
+    """``moe`` gathers no copy of the token rows: the dispatch gets h (T, D)
+    itself with ``group`` = top_k (assignment t reads row t // k), and its
+    buffers equal the dispatch of the gathered rows ``h[t // k]``."""
+    cfg, _, p, _, x = _layer("float32", arch)
+    seen = []
+
+    def spy(ids, pay, P, C, **kw):
+        seen.append((ids, pay, P, C, kw))
+        return dispatch_ref(ids, pay, P, C, **kw)
+
+    monkeypatch.setattr(ffn, "dispatch", spy)
+    ffn.moe(cfg, p, x)
+    ((ids, h, P, C, kw),) = seen
+    T = x.shape[0] * x.shape[1]
+    assert kw == {"group": cfg.top_k} and h.shape == (T, cfg.d_model) and ids.shape == (T * cfg.top_k,)
+    gathered = h[torch.arange(T * cfg.top_k) // cfg.top_k]
+    for a, b in zip(dispatch_ref(ids, h, P, C, cfg.top_k), dispatch_ref(ids, gathered, P, C)):
+        assert torch.equal(a, b)
+
+
 def test_moe_capacity_matches_the_reference_formula():
     cfg = smoke_config("qwen2-moe-a2.7b")  # 8 experts, top-2, factor 1.25
     assert ffn.moe_capacity(cfg, 48) == 15  # ceil(48 * 2 / 8 * 1.25)
@@ -116,7 +139,8 @@ def _function_route(monkeypatch):
     """``moe`` through K3's autograd Function on the CPU, with the plain
     version swapped in for the kernel (which runs only on the card)."""
     monkeypatch.setattr(Dispatch, "forward_fn", staticmethod(dispatch_ref))
-    return _spy_dest(monkeypatch, route=lambda ids, pay, P, C: Dispatch.apply(ids, pay, P, C))
+    return _spy_dest(monkeypatch, route=lambda ids, pay, P, C, group=1: Dispatch.apply(
+        ids, pay, P, C, group))
 
 
 def _moe_grads(cfg, p, x, g, g_aux):
@@ -157,6 +181,31 @@ def test_dispatch_function_gradients_match_plain_and_jax_vjp(arch, capacity_fact
     for name in dp:
         np.testing.assert_allclose(dp[name].numpy(), want_dp[name], rtol=GRAD_TOL,
                                    atol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_dispatch_function_gradient_wrt_token_rows_matches_jax_vjp(k):
+    """K3's Function with ``group`` = k (the plain forward swapped in): the
+    gradient with respect to the token rows h, each token's k gathered rows
+    summed, equals ``jax.vjp`` of the reference ``dispatch_ref`` on
+    ``jnp.repeat(h, k)`` within 2e-5 in f32, at capacity factor 0.5 (drops)."""
+    rng = np.random.RandomState(30 + k)
+    tokens, E, W = 48, 8, 32
+    C = max(int(np.ceil(tokens * k / E * 0.5)), 4)
+    ids = np.argsort(rng.standard_normal((tokens, E)), axis=1)[:, :k].astype(np.int32).reshape(-1)
+    h = rng.standard_normal((tokens, W)).astype(np.float32)
+    g = rng.standard_normal((E, C, W)).astype(np.float32)
+    th = torch.from_numpy(h).requires_grad_()
+    orig = Dispatch.forward_fn
+    try:
+        Dispatch.forward_fn = staticmethod(dispatch_ref)
+        buf, counts, dest = Dispatch.apply(torch.from_numpy(ids), th, E, C, k)
+    finally:
+        Dispatch.forward_fn = staticmethod(orig)
+    assert (dest < 0).any() and int(counts.max()) > C  # drops at capacity
+    buf.backward(torch.from_numpy(g))
+    want = JAX("dispatch_vjp", ids, h, E, C, k, g)
+    np.testing.assert_allclose(th.grad.numpy(), want, rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
 def test_dispatch_function_backward_is_the_gather():
@@ -232,7 +281,7 @@ def test_engine_matches_jax_engine(schedule):
 # ---------------------------------------------------------------- on the card
 @pytest.mark.cuda
 def test_moe_kernel_route_matches_plain_on_card(monkeypatch):
-    """On the card ``moe`` dispatches through K3 (four launches) inside its
+    """On the card ``moe`` dispatches through K3 (one launch) inside its
     autograd Function: y and aux equal the plain route's (``dispatch_ref`` on
     the card) bit for bit in f32, and so do the gradients of x and every
     weight, with and without drops; ``forward_train`` of smoke qwen2-moe
@@ -252,11 +301,12 @@ def test_moe_kernel_route_matches_plain_on_card(monkeypatch):
             g_aux = torch.tensor(0.7, device="cuda")
             before = dispatch_ops.dispatch.LAUNCHES
             got = _moe_grads(cfg, p, x, g, g_aux)
-            assert dispatch_ops.dispatch.LAUNCHES == before + 4
+            assert dispatch_ops.dispatch.LAUNCHES == before + k3.LAUNCHES_PER_CALL == before + 1
             with monkeypatch.context() as m:
-                m.setattr(ffn, "dispatch", lambda *a: dispatch_ops.dispatch(*a, use_kernel=False))
+                m.setattr(ffn, "dispatch",
+                          lambda *a, **kw: dispatch_ops.dispatch(*a, **kw, use_kernel=False))
                 want = _moe_grads(cfg, p, x, g, g_aux)
-            assert dispatch_ops.dispatch.LAUNCHES == before + 4
+            assert dispatch_ops.dispatch.LAUNCHES == before + 1
             for a, b in zip(got[:3], want[:3]):
                 assert torch.equal(a, b)
             for name in got[3]:

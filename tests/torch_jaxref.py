@@ -133,6 +133,20 @@ def dispatch(ids, payloads, P, C, pallas=False):
     return ref, (_np(ops.dispatch(jids, jpay, P, C, use_kernel=True)) if pallas else None)
 
 
+def dispatch_vjp(ids, h, P, C, group, g):
+    """``jax.vjp`` of the buffers of ``dispatch_ref`` on the rows of h each
+    repeated ``group`` times (``jnp.repeat``: tuple t takes row t // group),
+    with respect to h, against the cotangent g (P, C, W)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.dispatch.ref import dispatch_ref
+
+    jids = jnp.asarray(ids)
+    _, vjp = jax.vjp(lambda h_: dispatch_ref(jids, jnp.repeat(h_, group, axis=0), P, C)[0],
+                     jnp.asarray(h))
+    return _np(vjp(jnp.asarray(g))[0])
+
+
 # ---------------------------------------------------------- K4 attention
 def attention(q, k, v, dtype, causal):
     """``attention_ref`` on q, k, v (float32) cast to ``dtype``."""
