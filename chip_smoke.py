@@ -125,8 +125,40 @@ before a path is driven and read just after):
 12. glm4-9b, chatglm3-6b, starcoder2-15b and musicgen-large at their
     widths with 4 layers: one ``generate`` each, K4 launched 4 times each.
 
-The kernels line gives K3 and K5 at the served layer's shape (phases 9 and
-11) and each kernel's launches summed over the paths that run it.
+Phases 13-14 serve the last two architectures, whose kernels phases 2, 7
+and 8 first hold to their plain versions at these shapes
+(``parity.FLASH_SWEEP``, ``DISPATCH_SWEEP`` and ``SSD_SWEEP`` hold them):
+
+13. Hybrid: jamba-1.5-large-398b at its published widths (d_model 8192,
+    64 / 8 heads of 128, 16 experts top-2, 256 SSM heads of 64, state 128,
+    chunk 256, vocab 65,536) with one period of 8 layers (seven mamba, one
+    attention, MoE on the four odd slots) and one cut: d_ff = moe_d_ff
+    8,192 (published 24,576; 33.1 GiB where a published period takes
+    84.1 GiB), through the engine as in phase 3.  K3 must be launched
+    (prefills + decode steps) x 4 times, K4 prefills x 1 and K5 prefills x
+    7 x 3.  The first MoE layer's dispatch in the 512-token prefill and in
+    the first four-slot decode step, as the served run makes them, is held
+    to ``dispatch_ref`` bit for bit and timed; the first mamba layer's scan
+    and the attention layer of a 512-token prefill to ``ssd_chunked``
+    within 2e-4 and to ``attention_ref`` within 2e-2, each timed by graph
+    replay beside its bound; then an f32 cut (d_ff = moe_d_ff 4,096, one
+    period, 40.6 GiB), built after the bf16 copy is freed, is served
+    against ``generate``, token for token.
+14. Cross-attention: llama-3.2-vision-90b at its published widths with 4 of
+    its 20 periods (16 self-attention and 4 cross-attention layers, 35.8
+    GiB): one ``generate`` (B = 2, 200-token prompts, 16 steps) with seeded
+    encoder states (2, 576, 8192); K4 launched exactly 16 times (the cross
+    layers stay on the plain path).  Decode at position S-1 after a prefill
+    of S-1 tokens within 3e-2 x max(|logits|, 1) of ``forward_train``'s
+    logits there; prefill logits that move when the encoder states do; and
+    the prefill cache made int8 by the JAX package's test rule (this
+    script's ``quantize_cache``), one ``kv_quant`` decode step within 0.08 x
+    max|logits| of ``forward_train``'s, with k/v still int8 and ek/ev bf16.
+
+The kernels line gives K3 and K5 at the served layer's shape of phases 9
+and 11 and K4 at phase 2's, and each kernel's launches summed over every
+path that runs it (phases 13-14 included); K3, K4 and K5 at jamba's served
+shapes are printed on lines of their own.
 
 Output: human-readable lines, then a ``{"kernels": [...]}`` JSON line, and
 last ``{"ok": true, "device": {...}}``.
@@ -691,6 +723,22 @@ def ssd_bound(B, L, H, P, N, chunk, x_itemsize, units="tensor") -> tuple[float, 
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _ssd_vs_f64(tag, got, plain, inputs, chunk) -> None:
+    """Print how far the kernel's and the plain version's y and hT are from
+    ``ssd_chunked`` computed in f64, absolute and as a share of 1 + |y|."""
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+
+    exact = ssd_chunked(*(t.double() for t in inputs), chunk)
+    scale = 1 + exact[0].abs()
+
+    def err(side):
+        d = (side[0].double() - exact[0]).abs()
+        return (f"{float(d.max()):.3g} ({float((d / scale).max()):.3g} of 1+|y|), hT "
+                f"{float((side[1].double() - exact[1]).abs().max()):.3g}")
+    log(f"[{tag}] vs the f64 computation: y kernel {err(got)}; plain {err(plain)}; max|y| "
+        f"{float(exact[0].abs().max()):.4g}")
+
+
 def phase_k5() -> dict:
     from repro_torch.kernels import parity
     from repro_torch.kernels.ssd import ssd as k5
@@ -724,12 +772,7 @@ def phase_k5() -> dict:
         f"{max_err:.3g} (tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("K5 disagrees with ssd_chunked at mamba2-780m")
-    exact = ssd_chunked(*(t.double() for t in (x, dt, A, Bm, Cm)), chunk)
-    log(f"[k5] vs the f64 computation: y kernel {float((got[0] - exact[0]).abs().max()):.3g}, "
-        f"plain {float((plain[0] - exact[0]).abs().max()):.3g}; hT kernel "
-        f"{float((got[1] - exact[1]).abs().max()):.3g}, plain "
-        f"{float((plain[1] - exact[1]).abs().max()):.3g}; max|y| {float(exact[0].abs().max()):.4g}")
-    del exact
+    _ssd_vs_f64("k5", got, plain, (x, dt, A, Bm, Cm), chunk)
     kernel = lambda: k5.ssd_fwd(x, dt, A, Bm, Cm, chunk)  # noqa: E731
     plain_fn = lambda: ssd_scan_ref(x, dt, A, Bm, Cm, chunk)  # noqa: E731
     ms, plain_ms = graph_time_ms(kernel, iters=20), graph_time_ms(plain_fn, iters=10)
@@ -762,6 +805,7 @@ def phase_k5() -> dict:
 MOE_ARCH, PHI_ARCH, SSM_ARCH = "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-780m"
 DENSE_ARCHS = ("glm4-9b", "chatglm3-6b", "starcoder2-15b", "musicgen-large")
 CUT_LAYERS = 4  # depth of the configs held at their widths with fewer layers
+JAMBA_F32_D_FF = 4096  # jamba's f32 cut: one period, 40.6 GiB
 
 
 @contextlib.contextmanager
@@ -940,7 +984,8 @@ def phase_ssm() -> dict:
 
     prompt = max((p for p, _ in requests), key=len)
     with _first_call(ssm, "ssd") as seen, torch.no_grad():
-        transformer.prefill(cfg, params, torch.from_numpy(prompt)[None].long().cuda(), 1024)
+        transformer.prefill(cfg, params, torch.from_numpy(prompt)[None].long().cuda(),
+                           max_len=1024)
     (x, dt, A, Bm, Cm), chunk = seen[0][0], cfg.ssm_chunk
     got = k5.ssd_fwd(x, dt, A, Bm, Cm, chunk)
     plain = ssd_chunked(x, dt, A, Bm, Cm, chunk)
@@ -984,8 +1029,247 @@ def phase_dense() -> int:
     return total
 
 
+# ---------------------------------------------------------------- phases 13-14
+JAMBA_ARCH, LLAMA_ARCH = "jamba-1.5-large-398b", "llama-3.2-vision-90b"
+LLAMA_PERIODS = 4  # of llama-3.2-vision's 20 (163.3 GiB in bf16); 35.8 GiB
+LLAMA_PROMPT, LLAMA_STEPS = 200, 16
+
+
+def phase_jamba() -> dict:
+    """jamba at its published widths but d_ff (one period of 8 layers;
+    ``profile_serve.SERVED_CUTS``) through the engine: K3 on its four MoE
+    layers in every prefill and decode step, K4 on its attention layer and
+    K5 on its seven mamba layers in every prefill; the first MoE layer's
+    dispatch at the prefill and decode shapes, the first scan and the
+    attention of a 512-token prefill held to their plain versions and timed;
+    then an f32 cut served against ``generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.dispatch.ops import dispatch
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd as k5
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.launch import bench_dispatch, bench_ssd
+    from repro_torch.launch.profile_serve import SERVED_CUTS
+    from repro_torch.models import attention, ffn, ssm, transformer
+    from repro_torch.models.common import count_active_params, init_params
+
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, **SERVED_CUTS[JAMBA_ARCH])
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _made("jamba", cfg, t0, f" of {full.num_layers}, d_ff = moe_d_ff {cfg.d_ff} of {full.d_ff}")
+    kinds = [f"{m}+{f}" for m, f in cfg.pattern]
+    log(f"[jamba] period {kinds}; {cfg.num_heads} heads / {cfg.num_kv_heads} kv heads of "
+        f"{cfg.hd}; {cfg.num_experts} experts top-{cfg.top_k}; {cfg.ssm_heads} SSM heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}; "
+        f"{count_active_params(cfg) / 1e9:.3f} B active params a token")
+    requests = _requests(cfg)
+    prompt_len = max(len(p) for p, _ in requests)
+
+    def tuples(n):
+        return lambda ids, *args, **kwargs: ids.numel() == n * cfg.top_k
+
+    counters = {"K3": dispatch, "K4": flash_attention, "K5": ssd_ops.ssd}
+    with _first_call(ffn, "dispatch", tuples(prompt_len)) as seen, \
+            _first_call(ffn, "dispatch", tuples(4)) as seen_decode:
+        _, launches, prefills, steps = _serve_both("jamba", cfg, params, requests, counters)
+    n_moe = sum(f == "moe" for _, f in cfg.pattern)
+    n_attn = sum(m == "attn" for m, _ in cfg.pattern)
+    n_mamba = sum(m == "mamba" for m, _ in cfg.pattern)
+    _expect("jamba", "K3", launches["K3"], (prefills + steps) * n_moe,
+            f"({prefills} prefills + {steps} decode steps) x {n_moe} MoE layers x 1 launch")
+    _expect("jamba", "K4", launches["K4"], prefills * n_attn,
+            f"{prefills} prefills x {n_attn} attention layer")
+    _expect("jamba", "K5", launches["K5"], prefills * n_mamba * k5.LAUNCHES_PER_CALL,
+            f"{prefills} prefills x {n_mamba} mamba layers x {k5.LAUNCHES_PER_CALL}")
+
+    served = {}
+    for label, ((ids, h, P, C), kw) in ((f"layer 1 of the {prompt_len}-token prefill", seen[0]),
+                                        ("layer 1 of a decode step, 4 slots", seen_decode[0])):
+        served[label] = bench_dispatch.compare_case(ids, h, P, C, kw["group"])
+    log(f"[jamba] K3 at the served shapes equals dispatch_ref bit for bit (buffers, counts, dest) "
+        f"on every route; {bench_dispatch.card()}:")
+    for line in bench_dispatch.report({"other": None, "shapes": served}):
+        log(f"[jamba] {line}")
+    pre = served[f"layer 1 of the {prompt_len}-token prefill"]
+    k3_row = {"ms": pre["ms"]["route: K3 reads h (group k)"], "plain_ms": pre["plain_ms"],
+              "bound_ms": pre["bound_ms"]["fused"]}
+    del seen, seen_decode, ids, h
+
+    # the first mamba layer's scan and the attention layer of the longest
+    # prompt's prefill, as the model calls them
+    prompt = torch.from_numpy(max((p for p, _ in requests), key=len))[None].long().cuda()
+    with _first_call(ssm, "ssd") as scans, _first_call(attention, "flash_attention") as attns, \
+            torch.no_grad():
+        transformer.prefill(cfg, params, prompt, max_len=1024)
+    (x, dt, A, Bm, Cm), chunk = scans[0][0], cfg.ssm_chunk
+    got, plain = k5.ssd_fwd(x, dt, A, Bm, Cm, chunk), ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    ok, ssd_err = parity.ssd_close(got, plain, parity.SSD_TOL)
+    log(f"[jamba] layer 0 of the {prompt.shape[1]}-token prefill: K5 at B,L,H,P,N="
+        f"{tuple(x.shape)}+({Bm.shape[-1]},) chunk {chunk} f32 against ssd_chunked: max|err| "
+        f"{ssd_err:.3g} (tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
+    _ssd_vs_f64("jamba", got, plain, (x, dt, A, Bm, Cm), chunk)
+    del got, plain
+    if not ok:
+        raise RuntimeError("K5 disagrees with ssd_chunked at jamba's layer 0")
+    B, L, H, P = x.shape
+    ssd_ms = graph_time_ms(lambda: k5.ssd_fwd(x, dt, A, Bm, Cm, chunk), iters=20)
+    ssd_plain_ms = graph_time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk), iters=10)
+    ssd_bound_ms, ssd_by = ssd_bound(B, L, H, P, Bm.shape[-1], chunk, 4, units="tensor")
+    log(f"[jamba] K5 device time (graph replay): kernel {ssd_ms:.5f} ms, plain {ssd_plain_ms:.5f} "
+        f"ms, bound on the units it uses {ssd_bound_ms:.5f} ms ({ssd_by}), share of bound "
+        f"{ssd_bound_ms / ssd_ms:.4f}")
+    k5_row = {"max_abs_err": ssd_err, "ms": ssd_ms, "plain_ms": ssd_plain_ms,
+              "bound_ms": ssd_bound_ms, "bound_by": ssd_by}
+    if _parent(K5_PARENT, k5.SOURCE):
+        log(f"[jamba] against the parent's K5 ({os.path.relpath(K5_PARENT, ROOT)}), at this shape "
+            "on the reference test's draw:")
+        for line in bench_ssd.report(bench_ssd.compare(["package", K5_PARENT],
+                                                       shape=(B, L, H, P, Bm.shape[-1], chunk))):
+            log(f"[jamba] {line}")
+
+    q, k, v = attns[0][0]
+    causal = attns[0][1].get("causal", True)
+    got = flash.flash_fwd(q, k, v, causal)
+    att_err = float((got.float() - attention_ref(q, k, v, causal).float()).abs().max())
+    tol = parity.FLASH_TOL[q.dtype]
+    Bq, S, Hq, Dh = q.shape
+    log(f"[jamba] layer 4 of the {S}-token prefill: K4 at B,S,H,Hkv,Dh={(Bq, S, Hq, k.shape[2], Dh)}"
+        f" {str(q.dtype)[6:]} causal against attention_ref: max|err| {att_err:.3g} (tol {tol}) "
+        f"{'ok' if att_err <= tol else 'FAIL'}")
+    if att_err > tol:
+        raise RuntimeError("K4 disagrees with attention_ref at jamba's attention layer")
+    G = Hq // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    att_ms, att_plain_ms, att_lib_ms = (graph_time_ms(f) for f in (
+        lambda: flash.flash_fwd(q, k, v, causal), lambda: attention_ref(q, k, v, causal),
+        lambda: sdpa(qt, kt, vt, is_causal=causal)))
+    att_bound_ms, att_by = attention_bound(Bq, S, Hq, k.shape[2], Dh, q.dtype, causal)
+    log(f"[jamba] K4 device time (graph replay): kernel {att_ms:.5f} ms, plain {att_plain_ms:.5f} "
+        f"ms, sdpa {att_lib_ms:.5f} ms (on the kv heads repeated), bound {att_bound_ms:.5f} ms "
+        f"({att_by}), share of bound {att_bound_ms / att_ms:.4f}")
+    k4_row = {"max_abs_err": att_err, "ms": att_ms, "plain_ms": att_plain_ms,
+              "library_ms": att_lib_ms, "bound_ms": att_bound_ms, "bound_by": att_by}
+    del params, scans, attns, x, dt, A, Bm, Cm, q, k, v, qt, kt, vt, got
+    _free()
+
+    # f32 on a narrower cut, after the bf16 copy is freed
+    cfg32 = dataclasses.replace(cfg, d_ff=JAMBA_F32_D_FF, moe_d_ff=JAMBA_F32_D_FF,
+                                dtype=torch.float32, param_dtype=torch.float32)
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    _f32_check("jamba", cfg32, params32, requests[0])
+    del params32
+    _free()
+    return {"launches": launches, "K3": k3_row, "K4": k4_row, "K5": k5_row}
+
+
+def quantize_cache(cache: dict) -> dict:
+    """A cache made int8 by the JAX package's test rule
+    (``tests/test_serving_optimizations.py:26-43``): k and v scaled per
+    (b, head, position) by absmax / 127 + 1e-9, rounded and clipped to
+    [-127, 127], with the scales beside them as ``k_scale``/``v_scale``;
+    every other leaf as it is."""
+    out = {}
+    for si, slot in cache.items():
+        out[si] = {}
+        for name, t in slot.items():
+            if name in ("k", "v"):
+                a = t.float()
+                scale = a.abs().amax(-1) / 127.0 + 1e-9
+                out[si][name] = torch.round(a / scale[..., None]).clamp(-127, 127).to(torch.int8)
+                out[si][f"{name}_scale"] = scale
+            else:
+                out[si][name] = t
+    return out
+
+
+def phase_llama() -> int:
+    """llama-3.2-vision at its published widths with LLAMA_PERIODS of its 20
+    periods: one ``generate`` with seeded encoder states (K4 on every
+    self-attention layer of the prefill, none on the cross-attention
+    layers); decode against ``forward_train``; logits that move with the
+    encoder states; one int8-cache decode step (``kv_quant``) against
+    ``forward_train``.  Returns K4's launches in the ``generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params
+
+    full = get_config(LLAMA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LLAMA_PERIODS * len(full.pattern))
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _made("llama", cfg, t0, f" of {full.num_layers}")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    B, S, Se = 2, LLAMA_PROMPT, cfg.num_encoder_tokens
+    enc = torch.randn(B, Se, cfg.d_model, generator=gen, device="cuda").to(cfg.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    n_self = sum(m == "attn" for m, _ in cfg.pattern) * cfg.num_periods
+    n_cross = sum(m == "xattn" for m, _ in cfg.pattern) * cfg.num_periods
+
+    with torch.no_grad():
+        flash_attention.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = transformer.generate(cfg, params, toks, LLAMA_STEPS, enc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.LAUNCHES
+        got = out.cpu().numpy()
+        if got.shape != (B, LLAMA_STEPS + 1) or got.min() < 0 or got.max() >= cfg.vocab_size:
+            raise RuntimeError(f"llama: generate gave {got.tolist()}")
+        log(f"[llama] generate(B={B}, {S}-token prompts, {Se} encoder states of {cfg.d_model}, "
+            f"{LLAMA_STEPS} steps) in {wall:.3f}s: {got.tolist()}")
+        _expect("llama", "K4", launches, n_self,
+                f"1 prefill x {n_self} self-attention layers; the {n_cross} cross-attention "
+                "layers none")
+
+        full_logits, _ = transformer.forward_train(cfg, params, toks, enc)
+        ref = full_logits[:, S - 1, : cfg.vocab_size]
+        scale = float(ref.abs().max())
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+        _, cache = transformer.prefill(cfg, params, toks[:, : S - 1], enc, max_len=S + 4)
+        lg_d, _ = transformer.decode_step(cfg, params, toks[:, S - 1], cache, pos)
+        err = float((lg_d[:, : cfg.vocab_size] - ref).abs().max())
+        tol = 3e-2 * max(scale, 1.0)
+        log(f"[llama] decode at position {S - 1} against forward_train: max|diff| {err:.4g}, "
+            f"tolerance 3e-2 x max(|logits|, 1) = {tol:.4g} {'ok' if err <= tol else 'FAIL'}")
+        if not (err <= tol and bool(lg_d.isfinite().all())):
+            raise RuntimeError("llama: decode disagrees with forward_train")
+
+        other = transformer.prefill(cfg, params, toks[:, : S - 1], enc * 0.5, max_len=S + 4)[0]
+        moved = float((other - transformer.prefill(cfg, params, toks[:, : S - 1], enc,
+                                                   max_len=S + 4)[0]).abs().max())
+        log(f"[llama] halving the encoder states moves the prefill logits by up to {moved:.4g}")
+        if not moved > 0:
+            raise RuntimeError("llama: the logits do not depend on the encoder states")
+        del other
+
+        cfg_q = dataclasses.replace(cfg, kv_quant=True)
+        qcache = quantize_cache(cache)
+        del cache
+        lg_q, qcache = transformer.decode_step(cfg_q, params, toks[:, S - 1], qcache, pos)
+        err_q = float((lg_q[:, : cfg.vocab_size] - ref).abs().max())
+        kv = {t.dtype for slot in qcache.values() for n, t in slot.items() if n in ("k", "v")}
+        ekv = {t.dtype for slot in qcache.values() for n, t in slot.items() if n in ("ek", "ev")}
+        kept = kv == {torch.int8} and ekv == {cfg.dtype}
+        log(f"[llama] kv_quant decode at position {S - 1} against forward_train: max|diff| "
+            f"{err_q:.4g}, tolerance 0.08 x max|logits| = {0.08 * scale:.4g}; after it k/v are "
+            f"{sorted(map(str, kv))}, ek/ev {sorted(map(str, ekv))}")
+        if not (err_q < 0.08 * scale and kept):
+            raise RuntimeError("llama: the int8 KV decode disagrees or its cache left int8")
+    del params, full_logits, qcache, enc
+    _free()
+    return launches
+
+
 def main() -> None:
-    name = phase_device()
+    device_name = phase_device()
     phase_build()
     flash_entry = phase_kernels()
     k4_launches = {"olmo-1b": phase_serving()}
@@ -999,14 +1283,25 @@ def main() -> None:
     dispatch_entry["launches"] += k3_phi
     ssd_entry.update(phase_ssm())
     k4_launches["dense configs"] = phase_dense()
+    jamba = phase_jamba()
+    k4_launches[JAMBA_ARCH] = jamba["launches"]["K4"]
+    k3_served = dispatch_entry["launches"]
+    dispatch_entry["launches"] += jamba["launches"]["K3"]
+    k5_served = ssd_entry["launches"]
+    ssd_entry["launches"] += jamba["launches"]["K5"]
+    k4_launches[LLAMA_ARCH] = phase_llama()
     flash_entry["launches"] = sum(k4_launches.values())
     log(f"[main] launches on the main paths: K4 {k4_launches}; K3 {dispatch_entry['launches']} "
-        f"({MOE_ARCH} served, {k3_phi} {PHI_ARCH}); K5 {ssd_entry['launches']} ({SSM_ARCH} "
-        "served); the kernels line gives K3 and K5 at the served layer's shape")
+        f"({k3_served - k3_phi} {MOE_ARCH} served, {k3_phi} {PHI_ARCH}, "
+        f"{jamba['launches']['K3']} {JAMBA_ARCH} served); K5 {ssd_entry['launches']} "
+        f"({k5_served} {SSM_ARCH} served, {jamba['launches']['K5']} {JAMBA_ARCH} served); the "
+        "kernels line gives K3 and K5 at the served layer's shape of phases 9 and 11")
+    for kernel in ("K3", "K4", "K5"):
+        log(f"[main] {kernel} at jamba's served shape: {json.dumps(jamba[kernel])}")
     entries = [flash_entry, affine_entry, reorder_entry, dispatch_entry, ssd_entry]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

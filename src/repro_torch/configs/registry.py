@@ -2,9 +2,8 @@
 
 ``get_config(arch_id)`` returns the exact assigned configuration;
 ``smoke_config(arch_id)`` returns a structurally identical reduced config
-small enough for a CPU forward pass.  Architectures whose families are not
-ported yet (the hybrid jamba and the cross-attention llama-3.2-vision)
-raise ``KeyError``.
+small enough for a CPU forward pass.  Every architecture of the JAX
+package is here; an unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -20,20 +19,14 @@ _MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "mamba2-780m": "mamba2_780m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 }
-
-# The JAX package's other architectures; each gets its module with its slice.
-_NOT_YET_PORTED = (
-    "llama-3.2-vision-90b",
-    "jamba-1.5-large-398b",
-)
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch_id: str):
-    if arch_id in _NOT_YET_PORTED:
-        raise KeyError(f"arch {arch_id!r} not yet ported; ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

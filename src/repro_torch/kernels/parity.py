@@ -37,27 +37,33 @@ INT32_MAX = 2**31 - 1
 # (T, P, C, W): the reference tests' shapes, then odd widths, a skewed keyed
 # batch that overflows, one slot per partition at the largest P, and
 # qwen2-moe's served shapes (60 experts, d_model 2048): a decode step of four
-# slots (4 tokens top-4, C = 4) and a 512-token prefill (C = 43)
+# slots (4 tokens top-4, C = 4) and a 512-token prefill (C = 43); and
+# jamba-1.5-large-398b's (16 experts top-2, d_model 8192): a 512-token
+# prefill (C = 80) and a decode step of four slots (C = 4)
 DISPATCH_SWEEP = ((64, 8, 16, 128), (128, 4, 8, 128), (32, 16, 4, 256), (1000, 7, 50, 3),
                   (16384, 64, 512, 32), (300, 1024, 1, 5), (16, 60, 4, 2048),
-                  (2048, 60, 43, 2048))
+                  (2048, 60, 43, 2048), (1024, 16, 80, 8192), (8, 16, 4, 8192))
 DISPATCH_GROUPS = (1, 4)  # tuples a payload row (4: the MoE layer's top-4 choices a token)
 # (B, L, H, P, N, chunk): the reference tests' shapes, chunk=256, a chunk
 # that is no multiple of the 64-row tile, a short one, 32 chunks through
-# the state passing, and the longest chunk at P = N = 128 with a head count
-# that fills no whole group of K5's four heads
+# the state passing, the longest chunk at P = N = 128 with a head count
+# that fills no whole group of K5's four heads, and jamba-1.5-large-398b's
+# mamba layer at a 512-token prefill (256 heads of 64, state 128, chunk 256)
 SSD_SWEEP = ((1, 128, 2, 64, 128, 64), (2, 256, 4, 64, 128, 128), (1, 512, 2, 128, 64, 128),
              (1, 512, 2, 64, 128, 256), (1, 300, 3, 64, 64, 100), (2, 128, 1, 128, 128, 32),
-             (1, 2048, 3, 64, 128, 64), (1, 1024, 5, 128, 128, 512))
+             (1, 2048, 3, 64, 128, 64), (1, 1024, 5, 128, 128, 512),
+             (1, 512, 256, 64, 128, 256))
 SSD_TOL = 2e-4  # tests/test_kernels.py:153-154
 # (B, S, H, Hkv, Dh): olmo-1b's attention (H = Hkv = 16, Dh = 128; also
 # qwen2-moe's) at the edges of K4's 64-row tiles and at the longest served
 # prompt, two ragged batches, GQA at both head widths, and the served dense
 # configs' heads: glm4-9b and chatglm3-6b (32 / 2, G = 16), starcoder2-15b
-# (48 / 4, G = 12), musicgen-large (32 / 32 at Dh = 64)
+# (48 / 4, G = 12), musicgen-large (32 / 32 at Dh = 64); and the self-attention
+# of jamba-1.5-large-398b and llama-3.2-vision-90b (64 / 8, G = 8) at
+# llama's 200-token prompt and jamba's longest served prompt
 FLASH_SWEEP = tuple((1, S, 16, 16, 128) for S in (1, 13, 63, 64, 65, 128, 129, 200, 512)) + (
     (2, 65, 16, 16, 128), (1, 200, 16, 4, 128), (1, 200, 16, 4, 64), (1, 200, 32, 2, 128),
-    (1, 200, 48, 4, 128), (1, 200, 32, 32, 64))
+    (1, 200, 48, 4, 128), (1, 200, 32, 32, 64), (1, 200, 64, 8, 128), (1, 512, 64, 8, 128))
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 DTYPES = (torch.float32, torch.bfloat16)
 

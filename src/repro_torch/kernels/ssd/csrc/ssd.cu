@@ -7,9 +7,9 @@
 // across chunks as in the paper's own chunked algorithm (section 6), in three
 // launches on one stream:
 //   1. chunk states, one block per (chunk, two heads with P = 64 or one with
-//      P = 128, b): cum = cumsum(dt A) in the chunk (to the `cum` scratch),
-//      and S_c = (dt exp(total - cum) x)^T B, a P x N matrix per head, each
-//      B tile loaded once for the block's heads.
+//      P = 128, b): cum = cumsum(dt A) in the chunk, summed and kept in f64
+//      (to the `cum` scratch), and S_c = (dt exp(total - cum) x)^T B, a P x N
+//      matrix per head, each B tile loaded once for the block's heads.
 //   2. state passing, elementwise over (b, h, p, n), the chunks in order:
 //        states[c] <- h (the state before chunk c);  h <- exp(total_c) h + S_c
 //      overwriting S in place; the last h is hT.
@@ -20,6 +20,11 @@
 //        Lmask[q,k] = exp(cum_q - cum_k) for k <= q (one exponential of the
 //        difference: the log-decay reaches -400 in a chunk, so it must not
 //        be factored), key steps past each warp's last row skipped.
+//   The cumulative log-decay is an f64 sum, and cum_q - cum_k an f64
+//   difference: in f32, cum near -500 carries an absolute error of 1e-4
+//   (its summation and its rounding), which exp turns into a relative error
+//   of 1e-4 in every Lmask entry, and y then misses the f64 scan by more
+//   than 2e-4 of |y| at jamba-1.5-large-398b's activations.
 // Every product runs on the tensor cores (mma.sync m16n8k8, TF32 operands,
 // f32 sums).  TF32 keeps 10 mantissa bits, and plain TF32 operands put y off
 // by about 1e-2 at mamba2-780m where the reference holds 2e-4; so each
@@ -182,7 +187,7 @@ template <int P, int N, typename XT>
 __global__ void __launch_bounds__(kThreads, 2)  // 74 KB of shared memory a block
 ssd_state_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const float* __restrict__ Bm,
-                 float* __restrict__ states, float* __restrict__ cum,
+                 float* __restrict__ states, double* __restrict__ cum,
                  float* __restrict__ decay, int L, int H, int cl) {
   using S = StateSmem<P, N>;
   constexpr int HG = kCols / P, NT = N / 16;
@@ -194,38 +199,38 @@ ssd_state_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long crow = (long long)b * L + (long long)c * cl;  // the chunk's first row
 
-  // cum = cumsum(dt a) over the chunk, one warp per head (cum to scratch);
-  // sW = dt exp(total - cum), the weight of each key in the state
+  // cum = cumsum(dt a) over the chunk in f64, one warp per head (cum to
+  // scratch); sW = dt exp(total - cum), the weight of each key in the state
   if (warp < HG && h0 + warp < H) {
     const int h = h0 + warp;
-    const float a = A[h];
+    const double a = A[h];
     float* w = sW + warp * kMaxChunk;
     constexpr int kSeg = kMaxChunk / 32;  // rows a lane scans, at most
     const int seg = (cl + 31) / 32, lo = min(lane * seg, cl), n = min(lo + seg, cl) - lo;
-    float d[kSeg], run = 0.f;
+    double d[kSeg], part[kSeg], run = 0.0;
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) d[j] = j < n ? dt[(crow + lo + j) * H + h] : 0.f;
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) {
       run += d[j] * a;
-      if (j < n) w[lo + j] = run;
+      part[j] = run;
     }
-    float incl = run;
+    double incl = run;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, incl, o);
+      const double v = __shfl_up_sync(0xffffffffu, incl, o);
       if (lane >= o) incl += v;
     }
-    const float off = incl - run, total = __shfl_sync(0xffffffffu, incl, 31);
+    const double off = incl - run, total = __shfl_sync(0xffffffffu, incl, 31);
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) {
       if (j < n) {
-        const float cm = w[lo + j] + off;
+        const double cm = part[j] + off;
         cum[(crow + lo + j) * H + h] = cm;
-        w[lo + j] = d[j] * expf(total - cm);
+        w[lo + j] = (float)(d[j] * exp(total - cm));
       }
     }
-    if (lane == 0) decay[((long long)b * nc + c) * H + h] = expf(total);
+    if (lane == 0) decay[((long long)b * nc + c) * H + h] = (float)exp(total);
   }
   __syncthreads();
 
@@ -362,7 +367,7 @@ __host__ __device__ inline OutLayout out_layout(int cl) {
   if (htile > o.stage) o.stage = htile;
   o.sc = kTile * o.ss * 4;
   o.sums = o.sc + kTile * (N + 4) * 4;
-  o.ring = o.sums + 2 * kOutHeads * kTile * nq * 4;
+  o.ring = o.sums + kOutHeads * kTile * nq * (8 + 4);  // f64 cum, f32 dt
   o.nst = o.ring + 2 * o.stage <= kMaxSmem ? 2 : 1;
   o.bytes = o.ring + o.nst * o.stage;
   return o;
@@ -372,7 +377,7 @@ template <int P, int N, typename XT>
 __global__ void __launch_bounds__(kOutThreads, 1)
 ssd_out_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ Bm, const float* __restrict__ Cm,
-               const float* __restrict__ states, const float* __restrict__ cum,
+               const float* __restrict__ states, const double* __restrict__ cum,
                XT* __restrict__ y, int L, int H, int cl) {
   constexpr int HPR = kOutCols / P;        // heads a round
   constexpr int NPIECE = N / kOutKeys;     // pieces of the state
@@ -391,8 +396,8 @@ ssd_out_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
 
   float* sS = reinterpret_cast<float*>(smem);             // [64][ss] scores
   float* sC = reinterpret_cast<float*>(smem + lay.sc);    // [64][N + 4] C rows
-  float* sCum = reinterpret_cast<float*>(smem + lay.sums);  // [kOutHeads][64 nq]
-  float* sDt = sCum + kOutHeads * kTile * nq;
+  double* sCum = reinterpret_cast<double*>(smem + lay.sums);  // [kOutHeads][64 nq]
+  float* sDt = reinterpret_cast<float*>(sCum + kOutHeads * kTile * nq);
   auto slot_ptr = [&](int slot) { return smem + lay.ring + slot * lay.stage; };
 
   // cum (from step 1) and dt of the keys this tile needs, for each head
@@ -400,7 +405,7 @@ ssd_out_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
   for (int i = threadIdx.x; i < kOutHeads * kspan; i += blockDim.x) {
     const int j = i / kspan, k = i - j * kspan;
     const bool v = j < heads;
-    sCum[j * kTile * nq + k] = v ? cum[(crow + k) * H + hbase + j] : 0.f;
+    sCum[j * kTile * nq + k] = v ? cum[(crow + k) * H + hbase + j] : 0.0;
     sDt[j * kTile * nq + k] = v ? dt[(crow + k) * H + hbase + j] : 0.f;
   }
   load_rows(sC, N + 4, Cm + (crow + q0) * N, N, kTile, N, cl - q0);
@@ -460,15 +465,15 @@ ssd_out_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
     const int hl = r * HPR + 64 * cb / P;            // this warp's head, in the group
     const int p0 = 64 * cb % P;                      // its first p
     const bool live = hl < heads;
-    const float* cumh = sCum + hl * kTile * nq;
+    const double* cumh = sCum + hl * kTile * nq;
     const float* dth = sDt + hl * kTile * nq;
     float acc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    const float cqa = live && qa < kspan ? cumh[qa] : 0.f;
-    const float cqb = live && qb < kspan ? cumh[qb] : 0.f;
+    const double cqa = live && qa < kspan ? cumh[qa] : 0.0;
+    const double cqb = live && qb < kspan ? cumh[qb] : 0.0;
 
     pipeline(
         inter + nxt, lay.nst,
@@ -513,7 +518,7 @@ ssd_out_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
               }
             }
             if (i == inter - 1) {  // scale by exp(cum_q) before the intra-chunk sum
-              const float ea = expf(cqa), eb = expf(cqb);
+              const float ea = expf((float)cqa), eb = expf((float)cqb);
 #pragma unroll
               for (int j = 0; j < 8; ++j) {
                 acc[j][0] *= ea;
@@ -534,16 +539,17 @@ ssd_out_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
           for (int ks = 0; ks < ksteps; ++ks) {
             const int ka = k0 + 8 * ks + t, kb = ka + 4;
             const bool la = ka < kspan, lb = kb < kspan;
-            const float cka = la ? cumh[ka] : 0.f, ckb = lb ? cumh[kb] : 0.f;
+            const double cka = la ? cumh[ka] : 0.0, ckb = lb ? cumh[kb] : 0.0;
             const float dka = la ? dth[ka] : 0.f, dkb = lb ? dth[kb] : 0.f;
             const float* sa = sS + (16 * rg + g) * lay.ss;
             const float* sb = sa + 8 * lay.ss;
             // __expf: ex2.approx of diff * log2(e); relative error ~2e-6 where
-            // |diff| < 20, and the terms past that are below 2e-9
-            const float v[4] = {la && ka <= qa ? sa[ka] * __expf(cqa - cka) * dka : 0.f,
-                                la && ka <= qb ? sb[ka] * __expf(cqb - cka) * dka : 0.f,
-                                lb && kb <= qa ? sa[kb] * __expf(cqa - ckb) * dkb : 0.f,
-                                lb && kb <= qb ? sb[kb] * __expf(cqb - ckb) * dkb : 0.f};
+            // |diff| < 20, and the terms past that are below 2e-9; the
+            // difference is taken in f64, then rounded
+            const float v[4] = {la && ka <= qa ? sa[ka] * __expf((float)(cqa - cka)) * dka : 0.f,
+                                la && ka <= qb ? sb[ka] * __expf((float)(cqb - cka)) * dka : 0.f,
+                                lb && kb <= qa ? sa[kb] * __expf((float)(cqa - ckb)) * dkb : 0.f,
+                                lb && kb <= qb ? sb[kb] * __expf((float)(cqb - ckb)) * dkb : 0.f};
             uint32_t ah[4], al[4];
             split4(v, ah, al);
             const int ra = (8 * ks + t) * kOutXStride, rb = ra + 4 * kOutXStride;
@@ -599,7 +605,9 @@ struct Args {
   const void* x;
   const float *dt, *A, *Bm, *Cm;
   void* y;
-  float *hT, *states, *cum, *decay;
+  float *hT, *states;
+  double* cum;
+  float* decay;
   int Bsz, L, H, cl;
   cudaStream_t s;
 };
@@ -646,8 +654,8 @@ extern "C" int ssd_max_chunk() { return kMaxChunk; }
 extern "C" int ssd_launches_per_call() { return 3; }
 
 // One launch of the scan: step 0 the chunk states, 1 the state passing, 2
-// the outputs (see the note at the top).  Scratch: states (B, L/cl, H, P, N),
-// cum (B, L, H) and decay (B, L/cl, H), all f32.
+// the outputs (see the note at the top).  Scratch: states (B, L/cl, H, P, N)
+// and decay (B, L/cl, H) f32, cum (B, L, H) f64.
 extern "C" int ssd_launch_step(int step, const void* x, const void* dt, const void* A,
                                const void* Bm, const void* Cm, void* y, void* hT, void* states,
                                void* cum, void* decay, int Bsz, int L, int H, int P, int N,
@@ -657,8 +665,8 @@ extern "C" int ssd_launch_step(int step, const void* x, const void* dt, const vo
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
-  const Args a{x, f(dt), f(A), f(Bm), f(Cm), y, w(hT), w(states), w(cum), w(decay),
-               Bsz, L, H, cl, (cudaStream_t)stream};
+  const Args a{x, f(dt), f(A), f(Bm), f(Cm), y, w(hT), w(states), static_cast<double*>(cum),
+               w(decay), Bsz, L, H, cl, (cudaStream_t)stream};
   if (x_bf16) return launch_xt<__nv_bfloat16>(step, a, P, N);
   return launch_xt<float>(step, a, P, N);
 }

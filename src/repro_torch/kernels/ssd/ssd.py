@@ -79,7 +79,7 @@ def launch_args(x, dt, A, Bm, Cm, chunk: int) -> tuple:
     y = torch.empty_like(x)
     hT = torch.empty((B, H, P, N), **f32)
     states = torch.empty((B, nc, H, P, N), **f32)  # S of each chunk, then the state before it
-    cum = torch.empty((B, L, H), **f32)  # cumsum(dt A) within each chunk
+    cum = torch.empty((B, L, H), dtype=torch.float64, device=x.device)  # cumsum(dt A) in each chunk
     decay = torch.empty((B, nc, H), **f32)  # exp of each chunk's total log-decay
     args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), hT.data_ptr(), states.data_ptr(), cum.data_ptr(), decay.data_ptr(),

@@ -10,10 +10,10 @@ Layers are organized in *periods*, the smallest repeating pattern of
 (mixer, ffn) sublayer kinds; per-layer parameters carry a leading
 ``num_periods`` stack dim, as in the JAX package, and the model loops over it.
 
-The dense attention + MLP, Mixture-of-Experts (``moe``) and Mamba2
-(``mamba``) families are ported.  The other features (``kv_quant``,
-``seq_parallel``, the ``xattn`` mixer) raise ``NotImplementedError`` rather
-than compute something else.
+Every family and feature of the JAX package is here: dense attention + MLP,
+Mixture-of-Experts (``moe``), Mamba2 (``mamba``), the hybrid of both
+(jamba), cross-attention (``xattn``, llama-3.2-vision), the int8 KV cache
+(``kv_quant``) and ``seq_parallel`` (a no-op without a mesh).
 """
 from __future__ import annotations
 
@@ -138,18 +138,6 @@ def from_reference_config(fields: dict) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for features the port does not have yet."""
-    unported = [
-        flag for flag in ("kv_quant", "seq_parallel") if getattr(cfg, flag)
-    ]
-    unported += ["xattn"] if any("xattn" in slot for slot in cfg.pattern) else []
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not yet ported to repro_torch"
-        )
-
-
 # --------------------------------------------------------------------------
 # Parameter definitions
 # --------------------------------------------------------------------------
@@ -178,7 +166,7 @@ def _inner_norm_defs(cfg: ModelConfig, prefix: str, dim: int) -> dict:
     return {f"{prefix}_scale": ParamDef((dim,), "ones")}
 
 
-def _attn_defs(cfg: ModelConfig) -> dict:
+def _attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     defs = {
         "wq": ParamDef((D, H * Dh)),
@@ -187,6 +175,11 @@ def _attn_defs(cfg: ModelConfig) -> dict:
         "wo": ParamDef((H * Dh, D), "scaled"),
     }
     defs.update(_norm_defs(cfg, "norm"))
+    if cross:
+        # the JAX package defines a norm of the encoder states and never
+        # applies it (its cross_attn projects them as they are); kept so the
+        # parameter trees match, and unused here too
+        defs.update(_inner_norm_defs(cfg, "kv_norm", cfg.d_model))
     return defs
 
 
@@ -237,7 +230,11 @@ def _mamba_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-MIXER_DEFS = {"attn": _attn_defs, "mamba": _mamba_defs}
+MIXER_DEFS = {
+    "attn": _attn_defs,
+    "xattn": lambda c: _attn_defs(c, cross=True),
+    "mamba": _mamba_defs,
+}
 FFN_DEFS = {"mlp": _mlp_defs, "moe": _moe_defs, "none": lambda c: {}}
 
 
@@ -250,7 +247,6 @@ def slot_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
 def param_defs(cfg: ModelConfig) -> dict:
     """Full parameter tree: {dotted name: ParamDef}. Per-layer params carry a
     leading ``num_periods`` stack dim."""
-    check_supported(cfg)
     n = cfg.num_periods
     defs: dict[str, ParamDef] = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model)),

@@ -8,7 +8,8 @@ prefill and a decode step, under the ``interleave`` or ``prefill_first``
 schedule.
 
 Where the port differs from the JAX engine: the cache (k/v for attention
-layers, the ssm and conv states for mamba layers) and the slot token vector
+layers, the ssm and conv states for mamba layers, both in a hybrid such as
+jamba) and the slot token vector
 live on ``device`` and are updated in place (prefill installs each leaf with
 ``copy_``, decode writes into the cache), instead of being replaced by new
 arrays every step.
@@ -51,7 +52,14 @@ class OrderedServingEngine:
     completions egress through a serial-number reorder ring, so callers see
     results in submission order regardless of per-request decode length.
     Runs on ``device`` (default ``cuda``; raises without a card unless the
-    caller passes ``device="cpu"``), where ``params`` must already lie."""
+    caller passes ``device="cpu"``), where ``params`` must already lie.
+
+    Raises ``ValueError`` for a config with a cross-attention (``xattn``)
+    layer or ``kv_quant``: the JAX engine cannot serve either (its prefill
+    passes no encoder states, ``repro/serve/engine.py:38-40``, and its
+    prefill cache has no scale leaves for the int8 cache it allocates,
+    ``:105-108`` against ``:145-147``), so there is nothing to hold a port
+    of it to."""
 
     def __init__(
         self,
@@ -65,6 +73,12 @@ class OrderedServingEngine:
         reorder_size: int = 256,
         device=None,
     ):
+        if cfg.has("xattn") or cfg.kv_quant:
+            raise ValueError(
+                f"{cfg.name}: the serving engine serves no cross-attention (xattn) or "
+                "kv_quant config: its prefill passes no encoder states, and its prefill "
+                "cache holds no scales for an int8 cache (as in the JAX engine)"
+            )
         self.device = default_device(device)
         self.cfg = cfg
         self.params = params

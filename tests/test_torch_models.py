@@ -1,7 +1,8 @@
 """Port parity: configs, parameters and the dense transformer (olmo-1b,
-glm4-9b, chatglm3-6b, starcoder2-15b, musicgen-large) against the JAX
-package on the CPU.  (The MoE and mamba2 families: ``test_torch_moe.py``
-and ``test_torch_ssm.py``.)
+glm4-9b, chatglm3-6b, starcoder2-15b, musicgen-large), with the int8 KV
+cache (``kv_quant``) and ``seq_parallel``, against the JAX package on the
+CPU.  (The MoE and mamba2 families: ``test_torch_moe.py`` and
+``test_torch_ssm.py``; jamba and llama-3.2-vision: ``test_torch_hybrid.py``.)
 
 Parameters come from the JAX package's ``init_params`` and move over through
 numpy (the two frameworks' random streams never match); token inputs are made
@@ -16,11 +17,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_jaxref import Reference
-from torch_parity import BF16_REL, F32_REL, check_transformer, close, leaves, tokens
+from torch_jaxref import Reference, bf16
+from torch_parity import (BF16_REL, F32_REL, check_transformer, close, leaves, period0,
+                          quantize_cache, tokens)
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.models import attention, common, transformer
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 
 JAX = Reference()
 _jax_child = JAX.fixture()
@@ -46,34 +48,16 @@ def _models(dtype: str, arch: str = "olmo-1b"):
 
 # ------------------------------------------------------------------ configs
 def test_registry_holds_the_ported_archs():
-    assert ARCH_IDS == DENSE_ARCHS + ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-780m")
+    assert ARCH_IDS == DENSE_ARCHS + ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                                      "jamba-1.5-large-398b", "llama-3.2-vision-90b")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_mirror_the_reference(arch):
     assert get_config(arch) == common.from_reference_config(_plain_fields(False, arch))
     assert smoke_config(arch) == common.from_reference_config(_plain_fields(True, arch))
-    for unported in ("jamba-1.5-large-398b", "llama-3.2-vision-90b"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            get_config(unported)
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
-
-
-@pytest.mark.parametrize(
-    "change",
-    [
-        {"kv_quant": True},
-        {"seq_parallel": True},
-        {"pattern": (("attn", "mlp"), ("xattn", "mlp"))},
-    ],
-)
-def test_unported_features_raise(change):
-    cfg = dataclasses.replace(smoke_config("olmo-1b"), **change)
-    with pytest.raises(NotImplementedError):
-        common.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError):
-        transformer.prefill(cfg, {}, torch.zeros(1, 4, dtype=torch.long))
 
 
 # --------------------------------------------------------------- parameters
@@ -186,3 +170,89 @@ def test_init_cache_matches_abstract_cache():
         assert name == gname and tuple(t.shape) == shape
         assert str(t.dtype).removeprefix("torch.") == dtype
         assert not t.any()
+
+
+# ------------------------------------------------------ kv_quant, seq_parallel
+@pytest.mark.parametrize("dtype,rel", [("float32", F32_REL), ("bfloat16", BF16_REL)])
+def test_attn_decode_quant_matches_reference(dtype, rel):
+    """``attn_decode_quant`` on the same int8 cache as the reference: the
+    new k/v quantized per (b, head) into the int8 leaves bit for bit at each
+    sequence's position, in place, their scales within f32 rounding, and
+    the output within the model tolerance."""
+    cfg, _ = _models(dtype)
+    cfg = dataclasses.replace(cfg, kv_quant=True)
+    p_np = period0(JAX("model_params", dtype, 0)["layers"])["0"]["attn"]
+    rng = np.random.RandomState(8)
+    B, S, Hkv, Dh = 2, 12, cfg.num_kv_heads, cfg.hd
+    x_np = rng.standard_normal((B, 1, cfg.d_model))
+    x_np = bf16(x_np) if dtype == "bfloat16" else x_np.astype(np.float32)
+    cache_np = {
+        "k": rng.randint(-127, 128, (B, Hkv, S, Dh)).astype(np.int8),
+        "v": rng.randint(-127, 128, (B, Hkv, S, Dh)).astype(np.int8),
+        "k_scale": rng.uniform(1e-3, 5e-2, (B, Hkv, S)).astype(np.float32),
+        "v_scale": rng.uniform(1e-3, 5e-2, (B, Hkv, S)).astype(np.float32),
+    }
+    position = np.array([5, 11], np.int32)
+    want_y, want_cache = JAX("attn_decode_quant", dtype, x_np, p_np, cache_np, position)
+    cache = {k: torch.from_numpy(v.copy()) for k, v in cache_np.items()}
+    y, new = attention.attn_decode_quant(cfg, params_from_numpy(p_np, "cpu"),
+                                         tensor_from_numpy(x_np, "cpu"), cache,
+                                         torch.from_numpy(position))
+    assert new is cache and y.dtype == cfg.dtype
+    close(y.float().numpy(), want_y, rel)
+    for name in ("k", "v"):
+        assert cache[name].dtype == torch.int8
+        np.testing.assert_array_equal(cache[name].numpy(), want_cache[name])
+    for name in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(cache[name].numpy(), want_cache[name], rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,rel", [("float32", F32_REL), ("bfloat16", BF16_REL)])
+def test_int8_kv_decode_matches_reference(dtype, rel):
+    """Smoke olmo with ``kv_quant``: the prefill's cache stays in the model's
+    dtype (as the reference's, whose prefill never reads the switch); made
+    int8 by the reference test's rule, one ``decode_step`` agrees with the
+    reference's on its own quantized cache, and with the full forward within
+    the reference test's 0.08 of scale; the cache stays int8."""
+    cfg, params = _models(dtype)
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    B, S, V = 2, 24, cfg.vocab_size
+    toks = tokens(B, S, V)
+    tt = torch.from_numpy(toks).long()
+    full, _ = transformer.forward_train(cfg, params, tt)
+    _, cache = transformer.prefill(cfg_q, params, tt[:, : S - 1], max_len=S + 4)
+    assert all(t.dtype == cfg.dtype for _, t in leaves(cache))
+    qcache = quantize_cache(cache)
+    got, new = transformer.decode_step(cfg_q, params, tt[:, S - 1], qcache,
+                                       torch.full((B,), S - 1, dtype=torch.int32))
+    assert new is qcache
+    want, want_cache = JAX("quant_decode", dtype, toks, S + 4)
+    close(got[:, :V].numpy(), want[:, :V], rel)
+    ref = full[:, S - 1, :V]
+    assert float((got[:, :V] - ref).abs().max()) < 0.08 * float(ref.abs().max())
+    want_leaves = dict(leaves(want_cache))
+    for name, t in leaves(new):
+        w = want_leaves[name]
+        assert str(t.dtype).removeprefix("torch.") == w.dtype.name, name
+        if name.endswith("scale"):
+            close(t.numpy(), w, rel)
+        elif dtype == "float32":
+            np.testing.assert_array_equal(t.numpy(), w, err_msg=name)
+        else:  # int8 encodings of k/v that agree within rel: compared as the values they stand for
+            scale = dict(leaves(new))[f"{name}_scale"]
+            close((t.float() * scale[..., None]).numpy(),
+                  w.astype(np.float32) * want_leaves[f"{name}_scale"][..., None], rel)
+
+
+def test_seq_parallel_changes_nothing():
+    """``seq_parallel`` places the residual stream on a mesh in the JAX
+    package, and there is no mesh here: smoke glm4 with it gives the same
+    logits as without, bit for bit, and matches the reference with it."""
+    cfg, params = _models("float32", "glm4-9b")
+    cfg_sp = dataclasses.replace(cfg, seq_parallel=True)
+    toks = tokens(2, 16, cfg.vocab_size)
+    tt = torch.from_numpy(toks).long()
+    assert torch.equal(transformer.forward_train(cfg_sp, params, tt)[0],
+                       transformer.forward_train(cfg, params, tt)[0])
+    want = JAX("transformer_outputs", "float32", toks, 20, "glm4-9b", seq_parallel=True)
+    check_transformer(cfg_sp, params, toks, want, F32_REL)

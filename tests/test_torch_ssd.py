@@ -188,26 +188,27 @@ def _ssd_steps(x, dt, A, Bm, Cm, chunk, mm):
     """K5's three steps in PyTorch, every product through ``mm``: chunk
     states S = (dt exp(total - cum) x)^T B; the state before each chunk,
     h <- exp(total) h + S; y = exp(cum_q) C h^T + (Lmask o C B^T) (dt x),
-    with dt folded into the mask and exp(cum_q - cum_k) taken as one exp."""
+    with dt folded into the mask and exp(cum_q - cum_k) taken as one exp of
+    an f64 difference (cum is an f64 sum)."""
     B_, L, H, P = x.shape
     N, nc = Bm.shape[-1], L // chunk
     xc = x.reshape(B_, nc, chunk, H, P).permute(0, 1, 3, 2, 4)  # (B,nc,H,cl,P)
     dtc = dt.reshape(B_, nc, chunk, H).permute(0, 1, 3, 2)  # (B,nc,H,cl)
     Bc, Cc = Bm.reshape(B_, nc, chunk, N), Cm.reshape(B_, nc, chunk, N)
-    cum = torch.cumsum(dtc * A[:, None], dim=-1)
+    cum = torch.cumsum(dtc.double() * A[:, None].double(), dim=-1)  # in f64, as K5
     total = cum[..., -1]  # (B,nc,H)
-    w = dtc * torch.exp(total[..., None] - cum)
+    w = (dtc * torch.exp(total[..., None] - cum)).float()
     S = mm((xc * w[..., None]).transpose(-1, -2), Bc[:, :, None])  # (B,nc,H,P,N)
     h, before = torch.zeros(B_, H, P, N), []
     for c in range(nc):
         before.append(h)
-        h = torch.exp(total[:, c])[..., None, None] * h + S[:, c]
+        h = torch.exp(total[:, c]).float()[..., None, None] * h + S[:, c]
     hb = torch.stack(before, dim=1)
     scores = mm(Cc, Bc.transpose(-1, -2))[:, :, None]  # (B,nc,1,cl,cl)
     causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
-    decay = torch.exp(cum[..., :, None] - cum[..., None, :]) * dtc[..., None, :]
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :]).float()) * dtc[..., None, :]
     M = torch.where(causal, scores * decay, torch.zeros(()))
-    y = torch.exp(cum)[..., None] * mm(Cc[:, :, None], hb.transpose(-1, -2)) + mm(M, xc)
+    y = torch.exp(cum.float())[..., None] * mm(Cc[:, :, None], hb.transpose(-1, -2)) + mm(M, xc)
     return y.permute(0, 1, 3, 2, 4).reshape(B_, L, H, P), h
 
 

@@ -244,18 +244,22 @@ def count_active_params(name, smoke):
 
 
 @functools.lru_cache(maxsize=None)
-def _model(dtype, seed, arch="olmo-1b", capacity_factor=None):
+def _model(dtype, seed, arch="olmo-1b", changes=()):
     """(cfg, params): smoke ``arch`` with dtype and param_dtype ``dtype``
-    (None: the smoke config's own) and ``capacity_factor`` (None: the
-    config's own), ``init_params`` at PRNGKey(seed)."""
+    (None: the smoke config's own) and the field ``changes`` ((name, value)
+    pairs), ``init_params`` at PRNGKey(seed)."""
     import jax
     from repro.models import common
 
-    changes = {} if dtype is None else dict(dtype=dtype, param_dtype=dtype)
-    if capacity_factor is not None:
-        changes["capacity_factor"] = capacity_factor
-    cfg = _config(arch, True, **changes)
+    kw = {} if dtype is None else dict(dtype=dtype, param_dtype=dtype)
+    cfg = _config(arch, True, **kw, **dict(changes))
     return cfg, common.init_params(cfg, jax.random.PRNGKey(seed))
+
+
+def _enc(encoder_states):
+    import jax.numpy as jnp
+
+    return None if encoder_states is None else jnp.asarray(encoder_states)
 
 
 def model_params(dtype, seed, arch="olmo-1b"):
@@ -263,38 +267,99 @@ def model_params(dtype, seed, arch="olmo-1b"):
     return _np(_model(dtype, seed, arch)[1])
 
 
-def transformer_outputs(dtype, toks, max_len, arch="olmo-1b", capacity_factor=None):
-    """Smoke ``arch`` (PRNGKey(0)) on tokens (B, S): ``forward_train``
-    logits and aux; ``prefill`` of all but the last token (logits, cache);
-    ``decode_step`` of the last token at position S-1 (logits, new cache).
-    Caches as {slot: {leaf: array}}."""
+def transformer_outputs(dtype, toks, max_len, arch="olmo-1b", encoder_states=None, **changes):
+    """Smoke ``arch`` (PRNGKey(0), with the field ``changes``) on tokens
+    (B, S) and ``encoder_states``: ``forward_train`` logits and aux;
+    ``prefill`` of all but the last token (logits, cache); ``decode_step`` of
+    the last token at position S-1 (logits, new cache).  Caches as {slot:
+    {leaf: array}}."""
     import jax.numpy as jnp
     from repro.models import transformer as tf
 
-    cfg, params = _model(dtype, 0, arch, capacity_factor)
-    jt = jnp.asarray(toks)
+    cfg, params = _model(dtype, 0, arch, tuple(sorted(changes.items())))
+    jt, enc = jnp.asarray(toks), _enc(encoder_states)
     S = toks.shape[1]
-    full, aux = tf.forward_train(cfg, params, jt)
-    logits_p, cache = tf.prefill(cfg, params, jt[:, : S - 1], max_len=max_len)
+    full, aux = tf.forward_train(cfg, params, jt, enc)
+    logits_p, cache = tf.prefill(cfg, params, jt[:, : S - 1], enc, max_len=max_len)
     pos = jnp.full((toks.shape[0],), S - 1, jnp.int32)
     logits_d, cache_d = tf.decode_step(cfg, params, jt[:, S - 1], cache, pos)
     return _np(dict(full=full, aux=aux, prefill=logits_p, cache=cache, decode=logits_d,
                     cache_d=cache_d))
 
 
-def generate(dtype, prompt, num_steps, arch="olmo-1b"):
+def quant_decode(dtype, toks, max_len, arch="olmo-1b"):
+    """Smoke ``arch`` (PRNGKey(0)): ``prefill`` of all but the last token,
+    its cache made int8 by the reference test's rule
+    (``test_serving_optimizations._quantize_cache``), then ``decode_step``
+    of the last token with ``kv_quant``: (logits, the new cache)."""
+    import jax.numpy as jnp
+    from repro.models import transformer as tf
+    from test_serving_optimizations import _quantize_cache
+
+    cfg, params = _model(dtype, 0, arch)
+    jt, S = jnp.asarray(toks), toks.shape[1]
+    _, cache = tf.prefill(cfg, params, jt[:, : S - 1], max_len=max_len)
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    pos = jnp.full((toks.shape[0],), S - 1, jnp.int32)
+    return _np(tf.decode_step(cfg_q, params, jt[:, S - 1], _quantize_cache(cache), pos))
+
+
+def moe_routing(dtype, toks, arch, encoder_states=None):
+    """The routing of every MoE layer of smoke ``arch`` (PRNGKey(0)) in
+    ``forward_train`` on ``toks``, in the order the layers run: one dict a
+    layer with the layer's input ``x`` (B, S, D), the router input ``h``
+    (T, D) and the assignments ``ids`` (T*k,), token-major, as the reference
+    computed them (recorded with ``jax.debug.callback`` inside its scan)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import ffn
+    from repro.models import transformer as tf
+
+    cfg, params = _model(dtype, 0, arch)
+    seen = []
+    norm, rowwise = ffn.apply_norm, ffn.moe_dispatch_rowwise
+
+    def record_h(x, h):
+        seen.append({"x": np.asarray(x), "h": np.asarray(h).reshape(-1, h.shape[-1])})
+
+    def record_ids(ids):
+        seen[-1]["ids"] = np.asarray(ids).reshape(-1)
+
+    def spy_norm(cfg_, x, p, prefix):
+        out = norm(cfg_, x, p, prefix)
+        if "w_router" in p:
+            jax.debug.callback(record_h, x, out, ordered=True)
+        return out
+
+    def spy_rowwise(ids, E, C):
+        jax.debug.callback(record_ids, ids, ordered=True)
+        return rowwise(ids, E, C)
+
+    ffn.apply_norm, ffn.moe_dispatch_rowwise = spy_norm, spy_rowwise
+    try:
+        jax.block_until_ready(tf.forward_train(cfg, params, jnp.asarray(toks),
+                                               _enc(encoder_states)))
+        jax.effects_barrier()
+    finally:
+        ffn.apply_norm, ffn.moe_dispatch_rowwise = norm, rowwise
+    return seen
+
+
+def generate(dtype, prompt, num_steps, arch="olmo-1b", encoder_states=None):
     import jax.numpy as jnp
     from repro.models import transformer as tf
 
     cfg, params = _model(dtype, 0, arch)
-    return np.asarray(tf.generate(cfg, params, jnp.asarray(prompt), num_steps=num_steps))
+    return np.asarray(tf.generate(cfg, params, jnp.asarray(prompt), num_steps=num_steps,
+                                  encoder_states=_enc(encoder_states)))
 
 
-def abstract_cache(dtype, batch, max_len, arch="olmo-1b"):
-    """[(leaf name, shape, dtype name)] of ``abstract_cache``."""
+def abstract_cache(dtype, batch, max_len, arch="olmo-1b", **changes):
+    """[(leaf name, shape, dtype name)] of ``abstract_cache`` of smoke
+    ``arch`` in ``dtype`` with the field ``changes``."""
     from repro.models import transformer as tf
 
-    cfg, _ = _model(dtype, 0, arch)
+    cfg = _config(arch, True, dtype=dtype, param_dtype=dtype, **changes)
     return [(n, tuple(s.shape), np.dtype(s.dtype).name)
             for n, s in _leaves(tf.abstract_cache(cfg, batch, max_len))]
 
@@ -362,6 +427,40 @@ def mamba_layer(arch, dtype, x, p, kind, cache=None):
     else:
         y, (h, conv) = ssm.mamba_decode(cfg, jp, jx, tuple(jnp.asarray(c) for c in cache))
     return _np((y, h, conv))
+
+
+def xattn_layer(dtype, x, enc, p, kind, cache=None):
+    """The reference cross-attention of smoke llama-3.2-vision with one
+    layer's parameters ``p`` on x and encoder states ``enc``: ``train`` ->
+    y; ``prefill`` -> (y, ek, ev); ``decode`` (x (B, 1, D), ``cache`` = (ek,
+    ev)) -> y."""
+    import jax.numpy as jnp
+    from repro.models import attention
+
+    cfg, jp = _layer("llama-3.2-vision-90b", dtype, None, p)
+    jx = jnp.asarray(x)
+    if kind == "train":
+        return np.asarray(attention.cross_attn(cfg, jp, jx, jnp.asarray(enc)))
+    if kind == "prefill":
+        y, (ek, ev) = attention.cross_attn_prefill(cfg, jp, jx, jnp.asarray(enc))
+        return _np((y, ek, ev))
+    y, _ = attention.cross_attn_decode(cfg, jp, jx, tuple(jnp.asarray(c) for c in cache))
+    return np.asarray(y)
+
+
+def attn_decode_quant(dtype, x, p, cache, position):
+    """The reference ``attn_decode_quant`` of smoke olmo-1b with one layer's
+    parameters ``p``, on x (B, 1, D) against the int8 ``cache`` ({k, v,
+    k_scale, v_scale}) at ``position``: (y, the new cache)."""
+    import jax.numpy as jnp
+    from repro.models import attention
+
+    cfg, jp = _layer("olmo-1b", dtype, None, p)
+    cfg = dataclasses.replace(cfg, kv_quant=True)
+    y, new = attention.attn_decode_quant(cfg, jp, jnp.asarray(x),
+                                         {k: jnp.asarray(v) for k, v in cache.items()},
+                                         jnp.asarray(position))
+    return _np((y, new))
 
 
 def apply_norm(norm_type, x, params, dtype):
