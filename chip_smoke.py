@@ -155,9 +155,30 @@ and 8 first hold to their plain versions at these shapes
     script's ``quantize_cache``), one ``kv_quant`` decode step within 0.08 x
     max|logits| of ``forward_train``'s, with k/v still int8 and ek/ev bf16.
 
+Phase 15 drives the stream side: the paper's workloads and the serving
+tier, in subprocesses (this process holds a CUDA context, and the runtime
+forks its workers), each number printed beside the card's name and power
+limit.
+
+15. Stream workloads.  (a) ``python3 chip_smoke.py --stream-workloads``:
+    each TPCx-BB query of ``streams/tpcxbb.QUERIES`` on the port's process
+    runtime (``num_workers="auto"``, ``batch_size=32``) and the three DAG
+    forms of ``DAG_QUERIES`` through ``GraphPipeline``, at 200,000 tuples,
+    Q2 cut to 6,000 (its viewed-together state grows with the square of a
+    session's views; the cut is printed).  Egress must equal, tuple for
+    tuple and in serial order, :func:`sequential_oracle` (a loop that
+    applies each spec in turn, apart from the runtime); tuples/s and p99
+    are printed for each.  Then a ``SessionMux`` open loop on the process
+    backend: eight sessions, Poisson arrivals at half the probed capacity,
+    p50/p99/p999 printed, after eight interleaved sessions each got exactly
+    their own outputs in order.  (b) ``python -m
+    repro_torch.launch.bench_core --smoke``: every row printed; the
+    ``device_offload`` row must have run on ``cuda`` with K1 launched once
+    per dispatch and egress in order.  The phase prints its wall time.
+
 The kernels line gives K3 and K5 at the served layer's shape of phases 9
 and 11 and K4 at phase 2's, and each kernel's launches summed over every
-path that runs it (phases 13-14 included); K3, K4 and K5 at jamba's served
+path that runs it (phases 13-15 included); K3, K4 and K5 at jamba's served
 shapes are printed on lines of their own.
 
 Output: human-readable lines, then a ``{"kernels": [...]}`` JSON line, and
@@ -1268,6 +1289,213 @@ def phase_llama() -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+TPCXBB_TUPLES = 200_000
+# Q2's viewed-together state grows with the square of a session's views
+# (6,000 tuples: the reference test's size)
+TPCXBB_CUTS = {"q2": 6_000}
+TPCXBB_BATCH = 32
+# tuples per exchange unit: at the default (the batch, 32) the process
+# runtime can stall for good on Q1 when its host's cores are oversubscribed
+# (ROADMAP Queue 3, R8; the JAX package's runtime alike)
+TPCXBB_IO_BATCH = 8
+MUX_SECONDS = 2.0  # of offered load at half the probed capacity
+MUX_CHECK_VALUES = 64  # per session, in the interleaved ordering check
+STREAM_WORKLOADS_TIMEOUT_S = 420
+BENCH_CORE_TIMEOUT_S = 420
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def sequential_oracle(specs, source) -> list:
+    """The chain's egress computed apart from the runtime: a loop that
+    applies each spec in turn to the whole stream (per-key state for a
+    partitioned spec, one state for a stateful one)."""
+    stream = list(source)
+    for spec in specs:
+        out = []
+        if spec.kind == "stateless":
+            for v in stream:
+                out.extend(spec.fn(v))
+        elif spec.kind == "stateful":
+            state = spec.init_state()
+            for v in stream:
+                state, o = spec.fn(state, v)
+                out.extend(o)
+        else:
+            states = {}
+            for v in stream:
+                k = spec.key_fn(v)
+                state = states[k] if k in states else spec.init_state()
+                states[k], o = spec.fn(state, k, v)
+                out.extend(o)
+        stream = out
+    return stream
+
+
+def _run_stream(graph, source):
+    from repro_torch.core import Engine, EngineConfig, ProcessOptions
+
+    eng = Engine(EngineConfig(collect_outputs=True, backend="process", num_workers="auto",
+                              batch_size=TPCXBB_BATCH,
+                              process=ProcessOptions(io_batch=TPCXBB_IO_BATCH)))
+    t0 = time.perf_counter()
+    res = eng.run(graph, source)
+    return res, time.perf_counter() - t0
+
+
+def _tpcxbb(card: str) -> list:
+    """Every TPCx-BB query and DAG form on the process runtime, each held to
+    :func:`sequential_oracle` over its linear form; one row per run."""
+    from repro_torch.streams import tpcxbb
+
+    runs = [(q, "linear") for q in tpcxbb.QUERIES] + [(q, "dag") for q in tpcxbb.DAG_QUERIES]
+    rows, oracles = [], {}
+    for q, form in runs:
+        n = TPCXBB_CUTS.get(q, TPCXBB_TUPLES)
+        if n != TPCXBB_TUPLES:
+            log(f"[tpcxbb] cut: {q} runs {n} tuples, not {TPCXBB_TUPLES} (its viewed-together "
+                "state grows with the square of a session's views)")
+        specs, src = tpcxbb.QUERIES[q](n=n)
+        source = list(src)
+        if q not in oracles:  # a DAG form's egress is its linear form's
+            oracles[q] = sequential_oracle(specs, source)
+        want = oracles[q]
+        if form == "linear":
+            graph = tpcxbb.QUERIES[q](n=n)[0]
+        else:
+            nodes, edges, _ = tpcxbb.DAG_QUERIES[q](n=n)
+            graph = (nodes, edges)
+        res, wall = _run_stream(graph, source)
+        if res.outputs != want:
+            first = next((i for i, (a, b) in enumerate(zip(res.outputs, want)) if a != b),
+                         min(len(res.outputs), len(want)))
+            raise RuntimeError(f"tpcxbb {q} ({form}): egress differs from the sequential oracle "
+                               f"({len(res.outputs)} vs {len(want)} tuples, first at {first})")
+        rep = res.report
+        row = {"query": q, "form": form, "tuples": n, "egress": len(want), "wall_s": wall,
+               "throughput_per_s": rep.throughput, "p99_latency_ms": rep.p99_latency * 1e3,
+               "card": card}
+        log(f"[tpcxbb] {q} ({form}, {n} tuples, process, workers auto, batch {TPCXBB_BATCH}, "
+            f"io_batch {TPCXBB_IO_BATCH}): "
+            f"{rep.throughput:.1f} tuples/s, p99 {row['p99_latency_ms']:.3f} ms, wall "
+            f"{wall:.3f} s; egress {len(want)} tuples in serial order = the sequential oracle "
+            f"[{card}]")
+        rows.append(row)
+    return rows
+
+
+def _mux_rows(card: str) -> dict:
+    """The serving tier on the process backend: per-session ordering over
+    interleaved sessions, then the open loop at half the probed capacity
+    (``_run_serving``'s shape: the same chain, sessions and utilisation)."""
+    import random
+
+    from repro_torch.core import Engine, EngineConfig
+    from repro_torch.launch.bench_core import SERVING_SESSIONS, SERVING_UTIL, SPIN, STAGES
+    from repro_torch.serve import ArrivalConfig, MuxConfig, SessionMux, run_open_loop
+    from repro_torch.streams.parametric import cpu_bound_chain
+
+    def mux():
+        eng = Engine(EngineConfig(backend="process", num_workers=2, batch_size=8))
+        return SessionMux(eng, cpu_bound_chain(stages=STAGES, spin=SPIN),
+                          config=MuxConfig(max_sessions=SERVING_SESSIONS))
+
+    rng = random.Random(15)
+    inputs = [[rng.randrange(10**6) for _ in range(MUX_CHECK_VALUES)]
+              for _ in range(SERVING_SESSIONS)]
+    with mux() as m:
+        handles = [m.open() for _ in inputs]
+        for lo in range(0, MUX_CHECK_VALUES, 8):
+            for h, vals in zip(handles, inputs):
+                h.push(vals[lo:lo + 8])
+        for i, (h, vals) in enumerate(zip(handles, inputs)):
+            want = sequential_oracle(cpu_bound_chain(stages=STAGES, spin=SPIN), vals)
+            got = list(h.results(max_items=len(want), timeout=60))
+            h.close()
+            if got != want or h.poll():
+                raise RuntimeError(f"mux: session {i} did not get exactly its own outputs in order")
+    log(f"[mux] {SERVING_SESSIONS} interleaved sessions on the process backend: each got exactly "
+        f"its own {MUX_CHECK_VALUES} outputs, in order")
+    with mux() as m:
+        probe = run_open_loop(m, sessions=SERVING_SESSIONS, requests=2000, warmup=400,
+                              arrivals=ArrivalConfig(shape="poisson", rate=1e6, seed=3))
+    capacity = max(probe.achieved_rate, 1.0)
+    offered = capacity * SERVING_UTIL
+    per_session = max(int(offered * MUX_SECONDS / SERVING_SESSIONS), 50)
+    with mux() as m:
+        rep = run_open_loop(m, sessions=SERVING_SESSIONS, requests=per_session,
+                            arrivals=ArrivalConfig(shape="poisson",
+                                                   rate=offered / SERVING_SESSIONS, seed=11))
+    if rep.completed != SERVING_SESSIONS * per_session:
+        raise RuntimeError(f"mux: {rep.completed} of {SERVING_SESSIONS * per_session} "
+                           "requests completed")
+    row = {"sessions": SERVING_SESSIONS, "requests": rep.requests, "capacity_per_s": capacity,
+           "offered_rate_per_s": rep.offered_rate, "achieved_rate_per_s": rep.achieved_rate,
+           "p50_latency_ms": rep.p50 * 1e3, "p99_latency_ms": rep.p99 * 1e3,
+           "p999_latency_ms": rep.p999 * 1e3, "card": card}
+    log(f"[mux] open loop, {SERVING_SESSIONS} sessions x {per_session} requests on the process "
+        f"backend (2 workers, batch 8, {STAGES} x spin {SPIN}), Poisson at "
+        f"{SERVING_UTIL:.0%} of the probed {capacity:.1f}/s: offered {rep.offered_rate:.1f}/s, "
+        f"achieved {rep.achieved_rate:.1f}/s, p50 {row['p50_latency_ms']:.3f} ms, p99 "
+        f"{row['p99_latency_ms']:.3f} ms, p999 {row['p999_latency_ms']:.3f} ms [{card}]")
+    return row
+
+
+def stream_workloads() -> None:
+    """Phase 15 (a): run in a fresh process that never touches CUDA."""
+    card = _card()
+    result = {"tpcxbb": _tpcxbb(card), "mux": _mux_rows(card)}
+    print(json.dumps({"stream_workloads": result}), flush=True)
+
+
+def _subprocess(args: list, timeout: int, what: str) -> list:
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"{what} failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    return lines
+
+
+def phase_stream_workloads() -> int:
+    """Phase 15; returns K1's launches on its path (bench_core's
+    device_offload row)."""
+    t0 = time.perf_counter()
+    lines = _subprocess([os.path.join(ROOT, "chip_smoke.py"), "--stream-workloads"],
+                        STREAM_WORKLOADS_TIMEOUT_S, "the stream workloads")
+    for line in lines[:-1]:
+        log(line)
+    r = json.loads(lines[-1])["stream_workloads"]
+    if len(r["tpcxbb"]) != 8 or any(row["egress"] == 0 for row in r["tpcxbb"]):
+        raise RuntimeError("tpcxbb: a query or DAG form did not run or gave no egress")
+    card = _card()
+    out = os.path.join("build", "BENCH_core_torch.json")
+    lines = _subprocess(["-m", "repro_torch.launch.bench_core", "--smoke", "--out", out],
+                        BENCH_CORE_TIMEOUT_S, "bench_core --smoke")
+    with open(os.path.join(ROOT, out)) as f:
+        doc = json.load(f)
+    for row in doc["results"]:
+        log(f"[bench_core] {json.dumps(row)} [{card}]")
+    log(f"[bench_core] {lines[-1]} [{card}]")  # the ratios
+    (off,) = [row for row in doc["results"] if row["workload"] == "device_offload"]
+    if not (off["device_backend"] == "cuda" and off["egress_in_order"]
+            and off["device_launches"] == off["device_dispatches"] > 0):
+        raise RuntimeError(f"bench_core: the device_offload row did not run K1 once per dispatch "
+                           f"on cuda with egress in order: {off}")
+    log(f"[bench_core] device_offload: K1 launched {off['device_launches']} times = "
+        f"{off['device_dispatches']} dispatches on cuda, egress in order")
+    log(f"[stream workloads] phase 15 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return off["device_launches"]
+
+
 def main() -> None:
     device_name = phase_device()
     phase_build()
@@ -1291,11 +1519,15 @@ def main() -> None:
     ssd_entry["launches"] += jamba["launches"]["K5"]
     k4_launches[LLAMA_ARCH] = phase_llama()
     flash_entry["launches"] = sum(k4_launches.values())
+    k1_stream = affine_entry["launches"]
+    affine_entry["launches"] += phase_stream_workloads()
     log(f"[main] launches on the main paths: K4 {k4_launches}; K3 {dispatch_entry['launches']} "
         f"({k3_served - k3_phi} {MOE_ARCH} served, {k3_phi} {PHI_ARCH}, "
         f"{jamba['launches']['K3']} {JAMBA_ARCH} served); K5 {ssd_entry['launches']} "
         f"({k5_served} {SSM_ARCH} served, {jamba['launches']['K5']} {JAMBA_ARCH} served); the "
-        "kernels line gives K3 and K5 at the served layer's shape of phases 9 and 11")
+        "kernels line gives K3 and K5 at the served layer's shape of phases 9 and 11; K1 "
+        f"{affine_entry['launches']} ({k1_stream} stream, "
+        f"{affine_entry['launches'] - k1_stream} bench_core device_offload)")
     for kernel in ("K3", "K4", "K5"):
         log(f"[main] {kernel} at jamba's served shape: {json.dumps(jamba[kernel])}")
     entries = [flash_entry, affine_entry, reorder_entry, dispatch_entry, ssd_entry]
@@ -1305,4 +1537,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--stream-workloads"]:
+        stream_workloads()
+    else:
+        main()

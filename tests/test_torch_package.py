@@ -56,7 +56,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
               "repro_torch.launch.stream", "repro_torch.kernels.reorder.reorder",
               "repro_torch.kernels.reorder.ops", "repro_torch.kernels.dispatch.dispatch",
               "repro_torch.kernels.dispatch.ops", "repro_torch.kernels.ssd.ssd",
-              "repro_torch.kernels.ssd.ops"):
+              "repro_torch.kernels.ssd.ops", "repro_torch.streams.tpcxbb",
+              "repro_torch.core.simulate", "repro_torch.serve.mux", "repro_torch.serve.loadgen",
+              "repro_torch.analysis.common", "repro_torch.analysis.__main__",
+              "repro_torch.launch.bench_core"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -103,6 +106,9 @@ VERBATIM_COPIES = (
     "analysis/plancheck.py", "columnar/block.py", "columnar/codec.py", "core/checkpoint.py",
     "core/costmodel.py", "core/faults.py", "core/hybrid.py", "core/pipeline.py",
     "core/reorder.py", "core/runtime.py", "core/scheduler.py", "core/serial.py", "core/shm.py",
+    "streams/sources.py", "streams/parametric.py", "streams/tpcxbb.py", "core/simulate.py",
+    "serve/loadgen.py", "serve/mux.py", "analysis/common.py", "analysis/guards.py",
+    "analysis/lockgraph.py", "analysis/forksafety.py", "analysis/__main__.py",
 )
 
 

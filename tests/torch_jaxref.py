@@ -658,3 +658,108 @@ def stream_launcher_reference(source, device_params, io_batch):
     with _own_shm_names():
         out, _ = run_process(rcore, chain, source, "numpy", io_batch)
     return out
+
+
+# ------------------------------------------ stream workloads and serving tier
+def key_sampler(kind, *args):
+    """A simulator key sampler, named so that each side builds its own:
+    ``("uniform", key_space)`` or ``("gaussian", sigma, key_space)`` (the
+    reference test's wrapped normal); ``None`` for none."""
+    if kind is None:
+        return None
+    if kind == "uniform":
+        (key_space,) = args
+
+        def uniform(rng):
+            return rng.randrange(key_space)
+
+        return uniform
+    sigma, key_space = args
+
+    def gaussian(rng):
+        v = ((rng.gauss(0.0, sigma) + 1.0) % 2.0) - 1.0
+        return int((v + 1.0) / 2.0 * (key_space - 1))
+
+    return gaussian
+
+
+def tpcxbb_graph(tpcxbb, name, n, seed, dag):
+    """``(graph, source list)`` of query ``name`` of the given ``tpcxbb``
+    module: its specs, or with ``dag`` its DAG form's ``(nodes, edges)``."""
+    if dag:
+        nodes, edges, src = tpcxbb.DAG_QUERIES[name](n=n, seed=seed)
+        return (nodes, edges), list(src)
+    specs, src = tpcxbb.QUERIES[name](n=n, seed=seed)
+    return specs, list(src)
+
+
+def tpcxbb_run(pkg_core, tpcxbb, name, n, seed, dag, backend):
+    """The egress of one TPCx-BB query (or DAG form) on ``backend`` of
+    either package's Engine."""
+    graph, source = tpcxbb_graph(tpcxbb, name, n, seed, dag)
+    eng = pkg_core.Engine(pkg_core.EngineConfig(
+        backend=backend, num_workers=3, batch_size=8, collect_outputs=True))
+    return eng.run(graph, source).outputs
+
+
+def tpcxbb_egress_many(cases):
+    """The reference runtime's egress of each (name, n, seed, dag, backend)
+    of ``cases``, as ``repr`` (the values are tuples, lists, ints, floats)."""
+    import repro.core as rcore
+    from repro.streams import tpcxbb
+
+    with _own_shm_names():
+        return [repr(tpcxbb_run(rcore, tpcxbb, *case)) for case in cases]
+
+
+def tpcxbb_sim_ops(names):
+    """The reference's ``sim_ops`` of each query of ``names``, each SimOp as
+    a dict."""
+    from repro.streams.tpcxbb import sim_ops
+
+    return {name: [dataclasses.asdict(op) for op in sim_ops(name)] for name in names}
+
+
+def simulate_many(cases):
+    """The reference simulator's result dict for each (ops as dicts, or a
+    query name for its ``sim_ops``, n_tuples, SimConfig fields, sampler
+    spec) of ``cases``."""
+    from repro.core.simulate import SimConfig, SimOp, simulate
+    from repro.streams.tpcxbb import sim_ops
+
+    out = []
+    for ops, n, cfg, sampler in cases:
+        ops = sim_ops(ops) if isinstance(ops, str) else [SimOp(**op) for op in ops]
+        out.append(simulate(ops, n, SimConfig(**cfg), key_sampler=key_sampler(*sampler)))
+    return out
+
+
+def arrival_times_many(cases):
+    """The reference's ``arrival_times`` for each (ArrivalConfig fields, n)."""
+    from repro.serve import ArrivalConfig, arrival_times
+
+    return [arrival_times(ArrivalConfig(**cfg), n) for cfg, n in cases]
+
+
+def analysis_findings(paths, root):
+    """The reference's static-analysis findings over ``paths`` (relative to
+    ``root``), each as its ``to_dict()``."""
+    from repro.analysis import analyze_paths
+
+    return [f.to_dict() for f in analyze_paths(paths, root=root)]
+
+
+def bench_core_rows(repo, seconds, workers):
+    """The keys of the reference's ``device_offload`` and ``serving`` rows of
+    ``benchmarks/bench_core.py`` at a window of ``seconds`` (the offload row
+    on the NumPy kernel: the keys are the same on every backend)."""
+    import sys
+
+    sys.path.insert(0, repo)
+    from benchmarks import bench_core
+
+    bench_core._offload_backend = lambda: ("numpy", "affine")
+    with _own_shm_names():
+        offload = bench_core._run_device_offload(seconds, workers)
+    serving = bench_core._run_serving(seconds, workers)
+    return {"device_offload": sorted(offload), "serving": sorted(serving)}
