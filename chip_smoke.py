@@ -176,10 +176,45 @@ limit.
     ``device_offload`` row must have run on ``cuda`` with K1 launched once
     per dispatch and egress in order.  The phase prints its wall time.
 
+Phase 16 drives the port's trainer (``repro_torch.train``) on the card,
+through ``make_train_step`` with the optimizer settings of
+``launch/train.py`` (``opt_config``), on ``OrderedTokenPipeline(seed 0)``:
+
+16. Training.  (a) olmo-1b at its published widths and depth (16 layers,
+    1.28 B params, ``remat="full"``, bf16 params, f32 master and moments),
+    B 8 x S 1,024, 12 steps: every loss finite, the last below the first,
+    K4 launched 2 x 16 times a step (each attention layer's forward and its
+    recompute); prints each step's loss, lr and grad norm, the median step
+    time over steps 2-12, tokens/s, the model-FLOPs share of the step
+    (:func:`train_model_flops` over the step time at the bf16 peak) and
+    ``max_memory_allocated``; then one more step under ``torch.profiler``
+    (device time by group, busy share), the AdamW update alone, and layer
+    0's attention of step 1, as the step called K4, held through K4 to
+    ``attention_ref`` within 2e-2 and timed beside its bound.  (b) K4 held
+    to its plain version on the training path: olmo-1b with 2 of 16
+    layers, one step from the same parameters and batch with
+    ``FlashAttention.forward_fn`` the kernel, then ``attention_ref``, then
+    a planted wrong forward (K4 with its causal mask dropped): the
+    kernel's loss within 1e-5 and grad norm within 1e-3 relative of the
+    plain version's, the planted forward's outside both.  (c)
+    qwen2-moe-a2.7b at its widths with 2 of 24 layers (14.3 B params do
+    not fit with their optimizer state), B 4, 4 steps: K3 launched 2 x 2
+    times a step, finite losses and aux; layer 0's dispatch of step 1 (T =
+    16,384 tuples, 60 experts, W 2,048, group 4), as the step called K3,
+    held to ``dispatch_ref`` bit for bit on every route and timed.  (d) Checkpoint
+    and resume on the card: the 2-layer olmo-1b cut trains 4 steps straight
+    and is saved after step 2 (under ``build/``, removed after); restored
+    into new tensors on the card, every leaf equal to the saved one bit for
+    bit, the pipeline seeked to the saved cursor, steps 3-4 run again
+    within 1e-3 relative of the straight run's losses (bit-equality is
+    printed); the bytes written and the save and restore times.  The phase
+    prints its wall time.
+
 The kernels line gives K3 and K5 at the served layer's shape of phases 9
 and 11 and K4 at phase 2's, and each kernel's launches summed over every
-path that runs it (phases 13-15 included); K3, K4 and K5 at jamba's served
-shapes are printed on lines of their own.
+path that runs it (phases 13-16 included); K3, K4 and K5 at jamba's served
+shapes and K3 and K4 at the training shapes of phase 16 are printed on
+lines of their own.
 
 Output: human-readable lines, then a ``{"kernels": [...]}`` JSON line, and
 last ``{"ok": true, "device": {...}}``.
@@ -191,6 +226,7 @@ import dataclasses
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -203,6 +239,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.launch.timing import graph_time_ms, time_ms  # noqa: E402
+from repro_torch.tree import flatten, tree_map  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): device memory rate, and the operation
 # rate for each input type (bf16 on the tensor cores, f32 on the CUDA cores)
@@ -453,14 +490,10 @@ def phase_serving() -> int:
     # f32, where rounding cannot flip a greedy choice: engine vs generate
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
     del runs
-    params32 = _tree_map(lambda t: t.float(), params)
+    params32 = tree_map(lambda t: t.float(), params)
     del params
     _f32_check("serve", cfg32, params32, requests[0])
     return launches["K4"]
-
-
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1025,7 +1058,7 @@ def phase_ssm() -> dict:
         f"{bound_ms / ms:.4f}")
     del seen, x, dt, A, Bm, Cm, got, plain
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
-    params32 = _tree_map(lambda t: t.float(), params)
+    params32 = tree_map(lambda t: t.float(), params)
     del params
     _free()
     _f32_check("ssm", cfg32, params32, requests[0])
@@ -1056,6 +1089,41 @@ LLAMA_PERIODS = 4  # of llama-3.2-vision's 20 (163.3 GiB in bf16); 35.8 GiB
 LLAMA_PROMPT, LLAMA_STEPS = 200, 16
 
 
+def _k4_held(tag, where, q, k, v, causal, iters=100) -> dict:
+    """K4 on the (q, k, v) of one call the model made, held to
+    ``attention_ref`` at ``parity.FLASH_TOL`` and timed by graph replay
+    beside the plain version and SDPA (on the kv heads repeated): the
+    kernels line's keys."""
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    q, k, v = (t.detach() for t in (q, k, v))
+    got = flash.flash_fwd(q, k, v, causal)
+    err = float((got.float() - attention_ref(q, k, v, causal).float()).abs().max())
+    del got
+    tol = parity.FLASH_TOL[q.dtype]
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    log(f"[{tag}] {where}: K4 at B,S,H,Hkv,Dh={(B, S, H, Hkv, Dh)} {str(q.dtype)[6:]} "
+        f"{'causal' if causal else 'full'} against attention_ref: max|err| {err:.3g} (tol {tol}) "
+        f"{'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
+        raise RuntimeError(f"K4 disagrees with attention_ref at {tag}'s {where}")
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms, plain_ms, lib_ms = (graph_time_ms(f, iters=iters) for f in (
+        lambda: flash.flash_fwd(q, k, v, causal), lambda: attention_ref(q, k, v, causal),
+        lambda: sdpa(qt, kt, vt, is_causal=causal)))
+    bound_ms, by = attention_bound(B, S, H, Hkv, Dh, q.dtype, causal)
+    log(f"[{tag}] K4 device time (graph replay): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"sdpa {lib_ms:.5f} ms (on the kv heads repeated), bound {bound_ms:.5f} ms ({by}), "
+        f"share of bound {bound_ms / ms:.4f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
 def phase_jamba() -> dict:
     """jamba at its published widths but d_ff (one period of 8 layers;
     ``profile_serve.SERVED_CUTS``) through the engine: K3 on its four MoE
@@ -1066,9 +1134,7 @@ def phase_jamba() -> dict:
     then an f32 cut served against ``generate``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import parity
-    from repro_torch.kernels.attention import flash
     from repro_torch.kernels.attention.ops import flash_attention
-    from repro_torch.kernels.attention.ref import attention_ref
     from repro_torch.kernels.dispatch.ops import dispatch
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ssd as k5
@@ -1153,31 +1219,10 @@ def phase_jamba() -> dict:
                                                        shape=(B, L, H, P, Bm.shape[-1], chunk))):
             log(f"[jamba] {line}")
 
-    q, k, v = attns[0][0]
-    causal = attns[0][1].get("causal", True)
-    got = flash.flash_fwd(q, k, v, causal)
-    att_err = float((got.float() - attention_ref(q, k, v, causal).float()).abs().max())
-    tol = parity.FLASH_TOL[q.dtype]
-    Bq, S, Hq, Dh = q.shape
-    log(f"[jamba] layer 4 of the {S}-token prefill: K4 at B,S,H,Hkv,Dh={(Bq, S, Hq, k.shape[2], Dh)}"
-        f" {str(q.dtype)[6:]} causal against attention_ref: max|err| {att_err:.3g} (tol {tol}) "
-        f"{'ok' if att_err <= tol else 'FAIL'}")
-    if att_err > tol:
-        raise RuntimeError("K4 disagrees with attention_ref at jamba's attention layer")
-    G = Hq // k.shape[2]
-    qt = q.transpose(1, 2)
-    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    att_ms, att_plain_ms, att_lib_ms = (graph_time_ms(f) for f in (
-        lambda: flash.flash_fwd(q, k, v, causal), lambda: attention_ref(q, k, v, causal),
-        lambda: sdpa(qt, kt, vt, is_causal=causal)))
-    att_bound_ms, att_by = attention_bound(Bq, S, Hq, k.shape[2], Dh, q.dtype, causal)
-    log(f"[jamba] K4 device time (graph replay): kernel {att_ms:.5f} ms, plain {att_plain_ms:.5f} "
-        f"ms, sdpa {att_lib_ms:.5f} ms (on the kv heads repeated), bound {att_bound_ms:.5f} ms "
-        f"({att_by}), share of bound {att_bound_ms / att_ms:.4f}")
-    k4_row = {"max_abs_err": att_err, "ms": att_ms, "plain_ms": att_plain_ms,
-              "library_ms": att_lib_ms, "bound_ms": att_bound_ms, "bound_by": att_by}
-    del params, scans, attns, x, dt, A, Bm, Cm, q, k, v, qt, kt, vt, got
+    (q, k, v), kw = attns[0]
+    k4_row = _k4_held("jamba", f"layer 4 of the {q.shape[1]}-token prefill", q, k, v,
+                      kw.get("causal", True))
+    del params, scans, attns, x, dt, A, Bm, Cm, q, k, v
     _free()
 
     # f32 on a narrower cut, after the bf16 copy is freed
@@ -1496,6 +1541,370 @@ def phase_stream_workloads() -> int:
     return off["device_launches"]
 
 
+# ---------------------------------------------------------------- phase 16
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 12
+TRAIN_CUT = 2  # layers of the olmo-1b cuts (K4 against plain, resume) and of qwen2-moe
+MOE_TRAIN_B, MOE_TRAIN_STEPS = 4, 4
+RESUME_STEPS, RESUME_AT = 4, 2
+# (b)'s limits on one 2-layer step through K4 against the plain version's,
+# relative: on an H100, K4 moved the loss by 9.3e-7 and the grad norm by
+# 1.4e-5, and the planted wrong forward (K4 with its causal mask dropped) by
+# 1.1e-3 and 1.5; (b) fails unless the planted forward lands outside both
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-5, 1e-3
+RESUME_LOSS_REL = 1e-3
+
+
+def train_model_flops(cfg, B, S) -> float:
+    """Model FLOPs of one train step: 6 x the non-embedding parameters (the
+    unembedding counts) x the tokens, plus the attention's two products over
+    the causal pairs, 4 B H Dh a pair a layer forward and twice that
+    backward."""
+    from repro_torch.models.common import count_params
+
+    n = count_params(cfg) - cfg.vocab_size * cfg.d_model
+    attn_layers = sum(m == "attn" for m, _ in cfg.pattern) * cfg.num_periods
+    pairs = S * (S + 1) // 2
+    return 6 * n * B * S + 3 * 4 * B * cfg.num_heads * cfg.hd * pairs * attn_layers
+
+
+def _train_steps(cfg, params, opt, data, steps, ocfg) -> list[dict]:
+    """``steps`` steps of the port's ``make_train_step`` on ``data``: each
+    step's metrics as floats, its wall ms (ending in a synchronize) and its
+    batch's serial."""
+    from repro_torch.train import make_train_step
+
+    step_fn = make_train_step(cfg, ocfg)
+    rows = []
+    for _ in range(steps):
+        batch = next(data)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict({k: float(v) for k, v in m.items()}, ms=ms, serial=batch["serial"]))
+    return rows
+
+
+def _log_steps(tag, rows, first=0) -> None:
+    for i, r in enumerate(rows, start=first):
+        log(f"[{tag}] step {i}: loss {r['loss']:.6f} (nll {r['nll']:.6f}, aux {r['aux']:.6f}), "
+            f"lr {r['lr']:.4e}, grad norm {r['grad_norm']:.6f}, {r['ms']:.3f} ms")
+
+
+def _finite(tag, rows) -> list:
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite([r[k] for r in rows for k in ("loss", "aux", "grad_norm")])):
+        raise RuntimeError(f"{tag}: a loss, aux or grad norm is not finite: {rows}")
+    return losses
+
+
+def _clone(tree):
+    return tree_map(torch.clone, tree)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _data(cfg, B):
+    from repro_torch.train import DataConfig, OrderedTokenPipeline
+
+    return OrderedTokenPipeline(DataConfig(cfg.vocab_size, TRAIN_S, B, seed=0))
+
+
+def _train_full(card) -> tuple[int, dict]:
+    """Phase 16 (a): returns K4's launches and its row at the training shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.launch.profile_serve import _device_split
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import attention
+    from repro_torch.models.common import count_params, init_params
+    from repro_torch.train import apply_adamw, init_opt_state, make_train_step
+
+    # (a) olmo-1b at its published widths and depth, as launch/train.py trains
+    # it; layer 0's attention in the first step captured as the model calls K4
+    cfg = get_config("olmo-1b")
+    if cfg.remat != "full":
+        raise RuntimeError(f"train: {cfg.name} remat is {cfg.remat!r}, expected 'full'")
+    t0 = time.perf_counter()
+    params = init_params(cfg, _gen(0), "cuda")
+    _made("train", cfg, t0)
+    ocfg = opt_config(cfg, TRAIN_STEPS)
+    opt = init_opt_state(ocfg, params)
+    stream = _data(cfg, TRAIN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.LAUNCHES = 0
+    with _first_call(attention, "flash_attention") as attns:
+        rows = _train_steps(cfg, params, opt, stream, TRAIN_STEPS, ocfg)
+    k4_a = flash_attention.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    _log_steps("train", rows, first=1)
+    losses = _finite("train", rows)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    _expect("train", "K4", k4_a, 2 * cfg.num_layers * TRAIN_STEPS,
+            f"{TRAIN_STEPS} steps x {cfg.num_layers} layers x 2 (the forward and the recompute)")
+    step_ms = statistics.median(r["ms"] for r in rows[1:])
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_model_flops(cfg, TRAIN_B, TRAIN_S)
+    mfu = flops / (step_ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16]
+    log(f"[train] {cfg.name}, remat {cfg.remat}, B {TRAIN_B} x S {TRAIN_S}, {TRAIN_STEPS} steps "
+        f"from init_params(seed 0) on OrderedTokenPipeline(seed 0): loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; median step over steps 2-{TRAIN_STEPS} {step_ms:.3f} ms (step 1 "
+        f"{rows[0]['ms']:.3f} ms), {tokens / (step_ms / 1e3):.1f} tokens/s, model FLOPs "
+        f"{flops:.4e} a step ({count_params(cfg) - cfg.vocab_size * cfg.d_model:,} non-embedding "
+        f"params), model-FLOPs share of the bf16 peak {mfu:.4f}; peak memory "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated) [{card}]")
+
+    # where the step's time goes: one more step alone under the profiler, then
+    # the AdamW update alone on gradients of the parameters' shapes and types
+    step_fn = make_train_step(cfg, ocfg)
+    batch = next(stream)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, runs, _ = _device_split(prof)
+    busy = sum(groups.values())
+    log(f"[train] one step under the profiler: wall {wall * 1e3:.3f} ms, device "
+        f"{busy * 1e3:.3f} ms, busy share " + (f"{busy / wall:.4f}" if busy else
+                                               "not measured (no device time recorded)")
+        + "; " + ", ".join(f"{g} {sec * 1e3:.3f} ms in {runs[g]} kernels ({sec / busy:.4f})"
+                           for g, sec in sorted(groups.items(), key=lambda kv: -kv[1])))
+    del prof
+    g_adamw = _gen(3)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g_adamw, device="cuda")
+                     .mul_(1e-3).to(p.dtype), params)
+    adamw_ms = []
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        apply_adamw(ocfg, params, grads, opt)
+        end.record()
+        torch.cuda.synchronize()
+        adamw_ms.append(start.elapsed_time(end))
+    log(f"[train] the AdamW update alone (CUDA events, calls 2-4): "
+        + ", ".join(f"{t:.3f}" for t in adamw_ms[1:])
+        + f" ms over {count_params(cfg):,} params (bf16, f32 master and moments) [{card}]")
+    del params, opt, grads
+    _free()
+    (q, k, v), kw = attns[0]
+    k4_train = _k4_held("train", f"layer 0 of step 1 (B {TRAIN_B} x S {TRAIN_S})", q, k, v,
+                        kw.get("causal", True), iters=20)
+    del attns, q, k, v
+    _free()
+    return k4_a, k4_train
+
+
+def _train_cut():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("olmo-1b"), num_layers=TRAIN_CUT)
+
+
+def _train_k4_vs_plain() -> None:
+    """Phase 16 (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models.common import init_params
+    from repro_torch.train import init_opt_state
+
+    # (b) K4 held to its plain version through one train step from the same
+    # parameters and batch, with a planted wrong forward (K4 with its causal
+    # mask dropped) that the limits must reject
+    cut = _train_cut()
+    params = init_params(cut, _gen(1), "cuda")
+    ocfg_b = opt_config(cut, TRAIN_STEPS)
+    kernel = flash_ops.FlashAttention.forward_fn
+    held = {}
+    for route, fwd in (("kernel", kernel), ("plain", attention_ref),
+                       ("planted", lambda q, k, v, causal: kernel(q, k, v, False))):
+        p = _clone(params)
+        flash_ops.FlashAttention.forward_fn = staticmethod(fwd)
+        try:
+            (held[route],) = _train_steps(cut, p, init_opt_state(ocfg_b, p), _data(cut, TRAIN_B),
+                                          1, ocfg_b)
+        finally:
+            flash_ops.FlashAttention.forward_fn = staticmethod(kernel)
+        del p
+    pl = held["plain"]
+    rel = {route: (abs(r["loss"] - pl["loss"]) / abs(pl["loss"]),
+                   abs(r["grad_norm"] - pl["grad_norm"]) / pl["grad_norm"])
+           for route, r in held.items() if route != "plain"}
+    log(f"[train] K4 against its plain version on one train step of {cut.name} with "
+        f"{TRAIN_CUT} of {get_config(cut.name).num_layers} layers (B {TRAIN_B} x S {TRAIN_S}); "
+        f"loss and grad norm, relative to the plain version's (limits {TRAIN_LOSS_REL}, "
+        f"{TRAIN_GNORM_REL}): plain {pl['loss']:.6f}, {pl['grad_norm']:.6f}; "
+        + "; ".join(f"{route} {held[route]['loss']:.6f} (rel {lo:.3e}), "
+                    f"{held[route]['grad_norm']:.6f} (rel {gn:.3e})"
+                    for route, (lo, gn) in rel.items())
+        + f"; step {held['kernel']['ms']:.3f} / {pl['ms']:.3f} ms")
+    if not (rel["kernel"][0] <= TRAIN_LOSS_REL and rel["kernel"][1] <= TRAIN_GNORM_REL):
+        raise RuntimeError("train: the step through K4 disagrees with the plain version's")
+    if rel["planted"][0] <= TRAIN_LOSS_REL or rel["planted"][1] <= TRAIN_GNORM_REL:
+        raise RuntimeError("train: the limits pass a step whose K4 forward drops the causal mask")
+    del params
+    _free()
+
+
+def _train_moe(card) -> tuple[int, int, dict]:
+    """Phase 16 (c): returns K3's and K4's launches and K3's compare_case
+    at the training shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.dispatch.ops import dispatch
+    from repro_torch.launch import bench_dispatch
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import ffn
+    from repro_torch.models.common import init_params
+    from repro_torch.train import init_opt_state
+
+    # (c) qwen2-moe at its widths with TRAIN_CUT of its layers: K3 in every MoE
+    # layer's forward and recompute; layer 0's dispatch in the first step held
+    # to dispatch_ref bit for bit
+    full = get_config(MOE_ARCH)
+    moe = dataclasses.replace(full, num_layers=TRAIN_CUT)
+    t0 = time.perf_counter()
+    params = init_params(moe, _gen(0), "cuda")
+    _made("train", moe, t0, f" of {full.num_layers}")
+    ocfg_c = opt_config(moe, MOE_TRAIN_STEPS)
+    opt = init_opt_state(ocfg_c, params)
+    dispatch.LAUNCHES = flash_attention.LAUNCHES = 0
+    with _first_call(ffn, "dispatch") as seen:
+        rows = _train_steps(moe, params, opt, _data(moe, MOE_TRAIN_B), MOE_TRAIN_STEPS, ocfg_c)
+    k3_c, k4_c = dispatch.LAUNCHES, flash_attention.LAUNCHES
+    _log_steps("train moe", rows, first=1)
+    _finite("train moe", rows)
+    n_moe = sum(f == "moe" for _, f in moe.pattern) * moe.num_periods
+    n_attn = sum(m == "attn" for m, _ in moe.pattern) * moe.num_periods
+    _expect("train moe", "K3", k3_c, 2 * n_moe * MOE_TRAIN_STEPS,
+            f"{MOE_TRAIN_STEPS} steps x {n_moe} MoE layers x 2 (the forward and the recompute)")
+    _expect("train moe", "K4", k4_c, 2 * n_attn * MOE_TRAIN_STEPS,
+            f"{MOE_TRAIN_STEPS} steps x {n_attn} attention layers x 2")
+    ms = statistics.median(r["ms"] for r in rows[1:])
+    log(f"[train moe] {moe.name} with {TRAIN_CUT} of {full.num_layers} layers, B {MOE_TRAIN_B} x "
+        f"S {TRAIN_S}: median step over steps 2-{MOE_TRAIN_STEPS} {ms:.3f} ms, "
+        f"{MOE_TRAIN_B * TRAIN_S / (ms / 1e3):.1f} tokens/s [{card}]")
+    del params, opt
+    _free()
+    (ids, h, P, C), kw = seen[0]
+    label = f"layer 0 of step 1 (B {MOE_TRAIN_B} x S {TRAIN_S})"
+    k3_train = bench_dispatch.compare_case(ids.detach(), h.detach(), P, C, kw["group"])
+    log(f"[train moe] K3 in training equals dispatch_ref bit for bit (buffers, counts, dest) on "
+        f"every route; {bench_dispatch.card()}:")
+    for line in bench_dispatch.report({"other": None, "shapes": {label: k3_train}}):
+        log(f"[train moe] {line}")
+    del seen, ids, h
+    _free()
+    return k3_c, k4_c, k3_train
+
+
+def _train_resume(card) -> int:
+    """Phase 16 (d): returns K4's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models.common import init_params
+    from repro_torch.train import CheckpointManager, init_opt_state
+
+    # (d) checkpoint and resume on the card: RESUME_STEPS steps straight, saved
+    # after step RESUME_AT; then restored into new tensors, the pipeline
+    # seeked to the saved cursor, and the steps after RESUME_AT run again
+    cut = _train_cut()
+    params = init_params(cut, _gen(2), "cuda")
+    ocfg_d = opt_config(cut, RESUME_STEPS)
+    opt = init_opt_state(ocfg_d, params)
+    stream = _data(cut, TRAIN_B)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        flash_attention.LAUNCHES = 0
+        straight = _train_steps(cut, params, opt, stream, RESUME_AT, ocfg_d)
+        state = {"params": params, "opt": opt}
+        t0 = time.perf_counter()
+        path = CheckpointManager(tmp).save(RESUME_AT, state,
+                                           extra={"data_serial": stream.cursor()})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        saved = _clone(state)
+        straight += _train_steps(cut, params, opt, stream, RESUME_STEPS - RESUME_AT, ocfg_d)
+        del params, opt, state
+        t0 = time.perf_counter()
+        step, restored, extra = CheckpointManager(tmp).restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved, restored_flat = flatten(saved), flatten(restored)
+        names = list(saved)
+        if step != RESUME_AT or list(restored_flat) != names:
+            raise RuntimeError(f"train resume: restored step {step}, leaves differ from saved")
+        differ = [n for n in names if not _same_bits(saved[n], restored_flat[n])]
+        if differ:
+            raise RuntimeError(f"train resume: restored leaves differ from saved: {differ[:5]}")
+        del saved
+        again = _data(cut, TRAIN_B)
+        again.seek(extra["data_serial"])
+        resumed = _train_steps(cut, restored["params"], restored["opt"], again,
+                               RESUME_STEPS - RESUME_AT, ocfg_d)
+        k4_d = flash_attention.LAUNCHES
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _finite("train resume", straight + resumed)
+    want, got = straight[RESUME_AT:], resumed
+    if [r["serial"] for r in got] != [r["serial"] for r in want]:
+        raise RuntimeError("train resume: the resumed run read other batches")
+    rels = [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(got, want)]
+    bitwise = all(g["loss"] == w["loss"] and g["grad_norm"] == w["grad_norm"]
+                  for g, w in zip(got, want))
+    log(f"[train resume] {cut.name} with {TRAIN_CUT} layers: saved at step {RESUME_AT} "
+        f"({len(names)} leaves, {nbytes:,} bytes in {save_s:.3f} s, {nbytes / save_s / 1e9:.3f} "
+        f"GB/s), restored onto the card in {restore_s:.3f} s, every leaf equal bit for bit; "
+        f"steps {RESUME_AT + 1}-{RESUME_STEPS} resumed / straight: "
+        + ", ".join(f"{g['loss']:.6f} / {w['loss']:.6f}" for g, w in zip(got, want))
+        + f" (max rel {max(rels):.3e}, limit {RESUME_LOSS_REL}; losses and grad norms "
+        f"{'equal bit for bit' if bitwise else 'not bit-equal'}) [{card}]")
+    if max(rels) > RESUME_LOSS_REL:
+        raise RuntimeError("train resume: the resumed losses differ from the straight run's")
+    return k4_d
+
+
+def phase_train() -> dict:
+    """Phase 16: the port's trainer on the card.  Returns the launches of K3
+    and (by run) K4 on the training paths (a), (c) and (d), each read just
+    after its run with the counts set to 0 just before, and K4's and K3's
+    rows at the training shapes."""
+    t_phase = time.perf_counter()
+    card = _card()
+    _free()
+    k4_a, k4_train = _train_full(card)
+    _train_k4_vs_plain()
+    k3_c, k4_c, k3_train = _train_moe(card)
+    k4_d = _train_resume(card)
+    _free()
+    log(f"[train] phase 16 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"K3": k3_c, "K4_by_run": {"olmo-1b": k4_a, MOE_ARCH: k4_c,
+                                      "olmo-1b cut resumed": k4_d},
+            "K4 at olmo-1b's training shape": k4_train,
+            "K3 at qwen2-moe's training shape": {
+                "ms": k3_train["ms"]["route: K3 reads h (group k)"],
+                "plain_ms": k3_train["plain_ms"], "bound_ms": k3_train["bound_ms"]["fused"]}}
+
+
 def main() -> None:
     device_name = phase_device()
     phase_build()
@@ -1521,15 +1930,23 @@ def main() -> None:
     flash_entry["launches"] = sum(k4_launches.values())
     k1_stream = affine_entry["launches"]
     affine_entry["launches"] += phase_stream_workloads()
+    train = phase_train()
+    for run, n in train["K4_by_run"].items():
+        k4_launches[f"{run} trained"] = n
+    flash_entry["launches"] = sum(k4_launches.values())
+    dispatch_entry["launches"] += train["K3"]
     log(f"[main] launches on the main paths: K4 {k4_launches}; K3 {dispatch_entry['launches']} "
         f"({k3_served - k3_phi} {MOE_ARCH} served, {k3_phi} {PHI_ARCH}, "
-        f"{jamba['launches']['K3']} {JAMBA_ARCH} served); K5 {ssd_entry['launches']} "
+        f"{jamba['launches']['K3']} {JAMBA_ARCH} served, {train['K3']} {MOE_ARCH} trained); "
+        f"K5 {ssd_entry['launches']} "
         f"({k5_served} {SSM_ARCH} served, {jamba['launches']['K5']} {JAMBA_ARCH} served); the "
         "kernels line gives K3 and K5 at the served layer's shape of phases 9 and 11; K1 "
         f"{affine_entry['launches']} ({k1_stream} stream, "
         f"{affine_entry['launches'] - k1_stream} bench_core device_offload)")
     for kernel in ("K3", "K4", "K5"):
         log(f"[main] {kernel} at jamba's served shape: {json.dumps(jamba[kernel])}")
+    for what in ("K4 at olmo-1b's training shape", "K3 at qwen2-moe's training shape"):
+        log(f"[main] {what}: {json.dumps(train[what])}")
     entries = [flash_entry, affine_entry, reorder_entry, dispatch_entry, ssd_entry]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..tree import unflatten
 
 
 @dataclass(frozen=True)
@@ -259,21 +260,10 @@ def param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _unflatten(flat: dict) -> dict:
-    tree: dict = {}
-    for key, val in flat.items():
-        node = tree
-        parts = key.split(".")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = val
-    return tree
-
-
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested {name: (shape, dtype)} tree, the counterpart of the JAX
     package's ``abstract_params`` (nothing is allocated)."""
-    return _unflatten(
+    return unflatten(
         {k: (d.shape, d.dtype or cfg.param_dtype) for k, d in param_defs(cfg).items()}
     )
 
@@ -303,7 +293,7 @@ def init_params(cfg: ModelConfig, generator, device=None) -> dict:
                 d.shape, generator=generator, dtype=torch.float32, device=dev
             )
             flat[name] = w.mul_(scale).to(dtype)
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def count_params(cfg: ModelConfig) -> int:

@@ -3,6 +3,7 @@
 Entry points (functions of (cfg, params, ...), parameters as nested dicts of
 tensors with a leading ``num_periods`` dim on every per-layer leaf):
   forward_train(cfg, params, tokens, encoder_states) -> (logits, aux_loss)
+  loss_fn(cfg, params, batch) -> (loss, {"nll", "aux"})
   prefill(cfg, params, tokens, encoder_states, max_len) -> (last_logits, cache)
   decode_step(cfg, params, token, cache, position) -> (logits, cache)
   generate(cfg, params, prompt, num_steps, encoder_states) -> tokens
@@ -16,12 +17,24 @@ into the cache in place and returns the same cache object; the encoder k/v
 of a cross-attention layer are only read.  ``seq_parallel`` changes nothing
 here: it places the residual stream on a mesh in the JAX package, and the
 port has no mesh.
+
+Training recomputes activations as ``cfg.remat`` says, with
+``torch.utils.checkpoint`` in place of ``jax.checkpoint``: ``"full"``
+checkpoints each period of ``forward_train``'s loop (and, in a period of
+more than one sublayer, each sublayer inside it, so the backward holds one
+sublayer's working set at a time); ``"dots"`` saves the outputs of the
+products with no batch dimension (``aten.mm``/``aten.addmm``: the
+reference's ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest;
+``"none"`` saves everything.  Remat changes no number.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import ffn as ffn_mod
@@ -39,6 +52,34 @@ Cache = dict
 def _period(tree: dict, i: int) -> dict:
     """Period ``i``'s slice of a stacked parameter or cache tree (views)."""
     return {k: _period(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """Every period's slice of a stacked parameter tree, each leaf cut once
+    with ``unbind`` (whose backward stacks the periods' gradients in one
+    allocation, where ``_period``'s per-period ``select`` would allocate a
+    whole stacked gradient for each period)."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``'s activation checkpointing."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -62,16 +103,24 @@ def apply_period_train(
     layer_params: dict,
     encoder_states: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One period of the layer pattern.  Each sublayer is checkpointed on
+    its own when remat is on and the period has more than one."""
+    nested = cfg.remat != "none" and len(cfg.pattern) > 1
+
+    def ck(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if nested else fn(*args)
+
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for si, (mixer, ffn_kind) in enumerate(cfg.pattern):
         sp = layer_params[str(si)]
         if mixer == "attn":
-            h = attn.attn_train(cfg, sp["attn"], h)
+            h = ck(lambda hh, pp=sp: attn.attn_train(cfg, pp["attn"], hh), h)
         elif mixer == "xattn":
-            h = attn.cross_attn(cfg, sp["xattn"], h, encoder_states)
+            h = ck(lambda hh, pp=sp: attn.cross_attn(cfg, pp["xattn"], hh, encoder_states), h)
         elif mixer == "mamba":
-            h = ssm.mamba_train(cfg, sp["mamba"], h)
-        h, a = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
+            h = ck(lambda hh, pp=sp: ssm.mamba_train(cfg, pp["mamba"], hh), h)
+        h, a = ck(lambda hh, pp=sp, kind=ffn_kind: ffn_mod.apply_ffn(cfg, kind, pp.get(kind, {}),
+                                                                     hh), h)
         aux = aux + a
     return h, aux
 
@@ -136,13 +185,32 @@ def forward_train(
     encoder_states: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, padded_vocab) in fp32, the MoE
-    load-balancing aux loss summed over layers, a scalar)."""
+    load-balancing aux loss summed over layers, a scalar).  Each period is
+    checkpointed as ``cfg.remat`` says."""
     x = _embed(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_periods):
-        x, a = apply_period_train(cfg, x, _period(params["layers"], i), encoder_states)
+    body = _remat(cfg, lambda h, lp: apply_period_train(cfg, h, lp, encoder_states))
+    for lp in _unstack(params["layers"], cfg.num_periods):
+        x, a = body(x, lp)
         aux = aux + a
     return _unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL over ``batch`` ({"tokens", "labels"} (B, S) int,
+    optional "loss_mask" (B, S) and "encoder_states"), plus 0.01 x the MoE
+    aux loss: (total, {"nll", "aux"}), 0-d f32 tensors."""
+    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("encoder_states"))
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = batch["labels"].long()
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"nll": loss, "aux": aux}
 
 
 # -------------------------------------------------------------------- prefill

@@ -16,6 +16,7 @@ EXAMPLES = {
     "torch_streaming_session.py": ([], "process: "),
     "torch_tpcxbb_stream.py": (["q3", "4000", "process"], "egress tuples: "),
     "torch_serve_ordered.py": (["--device", "cpu"], "ordered egress verified for both policies"),
+    "torch_train_lm.py": (["--device", "cpu"], "trained 30 steps, checkpoints every 10"),
 }
 
 
@@ -42,5 +43,14 @@ def test_serving_example_needs_a_card_unless_asked_for_the_cpu():
     if torch.cuda.device_count():
         pytest.skip("checks the behaviour of a machine without CUDA")
     out = _run("torch_serve_ordered.py", [])
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+
+
+@pytest.mark.timeout(120)
+def test_training_example_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.device_count():
+        pytest.skip("checks the behaviour of a machine without CUDA")
+    out = _run("torch_train_lm.py", [])
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr

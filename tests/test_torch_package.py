@@ -59,7 +59,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
               "repro_torch.kernels.ssd.ops", "repro_torch.streams.tpcxbb",
               "repro_torch.core.simulate", "repro_torch.serve.mux", "repro_torch.serve.loadgen",
               "repro_torch.analysis.common", "repro_torch.analysis.__main__",
-              "repro_torch.launch.bench_core"):
+              "repro_torch.launch.bench_core", "repro_torch.train",
+              "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+              "repro_torch.train.train_step", "repro_torch.train.grad_compression",
+              "repro_torch.train.data", "repro_torch.launch.train", "repro_torch.tree"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -108,7 +111,7 @@ VERBATIM_COPIES = (
     "core/reorder.py", "core/runtime.py", "core/scheduler.py", "core/serial.py", "core/shm.py",
     "streams/sources.py", "streams/parametric.py", "streams/tpcxbb.py", "core/simulate.py",
     "serve/loadgen.py", "serve/mux.py", "analysis/common.py", "analysis/guards.py",
-    "analysis/lockgraph.py", "analysis/forksafety.py", "analysis/__main__.py",
+    "analysis/lockgraph.py", "analysis/forksafety.py", "analysis/__main__.py", "train/data.py",
 )
 
 

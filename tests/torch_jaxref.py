@@ -763,3 +763,100 @@ def bench_core_rows(repo, seconds, workers):
         offload = bench_core._run_device_offload(seconds, workers)
     serving = bench_core._run_serving(seconds, workers)
     return {"device_offload": sorted(offload), "serving": sorted(serving)}
+
+
+# ------------------------------------------------------------------ training
+def _ocfg(ocfg):
+    """The reference's ``OptConfig`` from a dict of its fields (the moment
+    dtype by name)."""
+    from repro.train.optimizer import OptConfig
+
+    kw = dict(ocfg)
+    if "moment_dtype" in kw:
+        kw["moment_dtype"] = _jnp_dtype(kw["moment_dtype"])
+    return OptConfig(**kw)
+
+
+def _tree(tree):
+    """Nested dict of numpy arrays -> the same nesting of jax arrays."""
+    import jax.numpy as jnp
+
+    if isinstance(tree, dict):
+        return {k: _tree(v) for k, v in tree.items()}
+    return jnp.asarray(tree)
+
+
+def opt_schedule(ocfg, steps):
+    """``schedule`` at each of ``steps`` (int32), as one f32 array."""
+    import jax.numpy as jnp
+    from repro.train.optimizer import schedule
+
+    cfg = _ocfg(ocfg)
+    return np.asarray([schedule(cfg, jnp.asarray(s, jnp.int32)) for s in steps])
+
+
+def adamw(ocfg, params, grads, state):
+    """One ``apply_adamw`` (op by op, not jitted) on the given trees:
+    (params, state, {"lr", "grad_norm"})."""
+    from repro.train.optimizer import apply_adamw
+
+    return _np(apply_adamw(_ocfg(ocfg), _tree(params), _tree(grads), _tree(state)))
+
+
+def loss_grads(dtype, arch, batch):
+    """``jax.value_and_grad`` of ``loss_fn`` of smoke ``arch`` (PRNGKey(0)
+    params, ``dtype``) on ``batch`` (numpy): (loss, {"nll", "aux"}, grads)."""
+    import jax
+    from repro.models import transformer as tf
+
+    cfg, params = _model(dtype, 0, arch)
+    (loss, metrics), grads = jax.value_and_grad(
+        lambda p: tf.loss_fn(cfg, p, _tree(batch)), has_aux=True)(params)
+    return _np((loss, metrics, grads))
+
+
+def train_steps(dtype, arch, ocfg, batches):
+    """The reference's jitted ``make_train_step`` of smoke ``arch`` from its
+    PRNGKey(0) params and ``init_opt_state``, over ``batches``: (each
+    step's metrics, the final params, the final optimizer state)."""
+    import jax
+    from repro.train.optimizer import init_opt_state
+    from repro.train.train_step import make_train_step
+
+    cfg, params = _model(dtype, 0, arch)
+    oc = _ocfg(ocfg)
+    state = init_opt_state(oc, params)
+    step = jax.jit(make_train_step(cfg, oc))
+    metrics = []
+    for b in batches:
+        params, state, m = step(params, state, _tree(b))
+        metrics.append(_np(m))
+    return metrics, _np(params), _np(state)
+
+
+def checkpoint_save(directory, step, state, extra, keep=3):
+    """The reference's ``CheckpointManager(directory, keep).save`` of
+    ``state`` (numpy, bf16 as ``ml_dtypes``) as jax arrays; its
+    ``all_steps()`` after."""
+    from repro.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(directory, keep=keep)
+    mgr.save(step, _tree(state), extra=extra)
+    return mgr.all_steps()
+
+
+def checkpoint_restore(directory, step=None):
+    """The reference's ``CheckpointManager(directory).restore(step)``:
+    (step, state as numpy, extra)."""
+    from repro.train.checkpoint import CheckpointManager
+
+    s, state, extra = CheckpointManager(directory).restore(step)
+    return s, _np(state), extra
+
+
+def quantize(x):
+    """The reference's ``_quantize`` of x: (q int8, scale f32)."""
+    import jax.numpy as jnp
+    from repro.train.grad_compression import _quantize
+
+    return _np(_quantize(jnp.asarray(x)))

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import ffn, transformer
+from repro_torch.tree import flatten
 
 # f32: both frameworks compute the same algorithm; the bound covers sum order
 # and the rope tables' last bits (relative to the largest logit).
@@ -24,12 +25,9 @@ def tokens(B, S, vocab, seed=0) -> np.ndarray:
     return np.random.RandomState(seed).randint(0, vocab, (B, S)).astype(np.int32)
 
 
-def leaves(tree, prefix=""):
-    for k, v in sorted(tree.items()):
-        if isinstance(v, dict):
-            yield from leaves(v, f"{prefix}{k}.")
-        else:
-            yield f"{prefix}{k}", v
+def leaves(tree):
+    """(name, leaf) pairs in leaf order (``repro_torch.tree.flatten``)."""
+    return flatten(tree).items()
 
 
 def close(got, want, rel):
