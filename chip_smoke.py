@@ -210,9 +210,31 @@ through ``make_train_step`` with the optimizer settings of
     printed); the bytes written and the save and restore times.  The phase
     prints its wall time.
 
+Phase 17 drives the port's distribution layer (``repro_torch.sharding``)
+on a one-rank NCCL group and a (1,1) ("data", "model") ``DeviceMesh`` on
+the card (a multi-rank mesh needs more than one card), and its dry-run:
+
+17. Mesh.  (a) olmo-1b as in phase 16 (a), 3 steps with its params,
+    optimizer state and batches placed by ``train_step_shardings`` under
+    ``use_mesh``, against the same 3 steps without a mesh: losses within
+    1e-5 and grad norms within 1e-3 relative (phase 16 (b)'s limits;
+    bit-equality is printed), K4 launched 2 x 16 times a step inside
+    ``local_map``, and the median step with and without the mesh.  (b)
+    qwen2-moe-a2.7b with 2 of 24 layers and mamba2-780m with 4 of 48 at
+    their published widths: B 2, a 333-token prefill and 16 greedy decode
+    steps through ``make_prefill_step`` / ``make_serve_step`` with params and
+    caches placed by ``prefill_shardings`` / ``serve_shardings``; tokens
+    equal to the run without a mesh, K3 (1 + 16) x 2, K4 2 and K5 4 x 3
+    launches.  (c) In subprocesses on the CPU (``fake`` process group):
+    ``python -m repro_torch.launch.dryrun --arch olmo-1b --mesh single``,
+    ``python -m repro_torch.launch.roofline --arch olmo-1b`` and the
+    one-card dry-run of (a)'s cell; each record's compute, memory and
+    collective terms against the H100 SXM5 data-sheet limits, and (a)'s
+    measured step against them.  The phase prints its wall time.
+
 The kernels line gives K3 and K5 at the served layer's shape of phases 9
 and 11 and K4 at phase 2's, and each kernel's launches summed over every
-path that runs it (phases 13-16 included); K3, K4 and K5 at jamba's served
+path that runs it (phases 13-17 included); K3, K4 and K5 at jamba's served
 shapes and K3 and K4 at the training shapes of phase 16 are printed on
 lines of their own.
 
@@ -1905,6 +1927,259 @@ def phase_train() -> dict:
                 "plain_ms": k3_train["plain_ms"], "bound_ms": k3_train["bound_ms"]["fused"]}}
 
 
+# Phase 17: the port's distribution layer on a one-rank mesh, and the dry-run
+MESH_TRAIN_STEPS = 3
+MESH_B, MESH_PROMPT, MESH_STEPS = 2, 333, 16
+MESH_CUTS = {MOE_ARCH: 2, SSM_ARCH: 4}  # layers of the served cuts (of 24 and 48)
+PHASE17_TIMEOUT_S = 300
+
+
+def _scalar(v) -> float:
+    from torch.distributed.tensor import DTensor
+
+    return float(v.full_tensor() if isinstance(v, DTensor) else v)
+
+
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A one-rank NCCL group on the card and a (1,1) ("data", "model") mesh
+    on it; the group is destroyed on exit."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_train(card, mesh) -> tuple[int, float]:
+    """Phase 17 (a): returns K4's launches under the mesh and the no-mesh
+    median step in ms."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models.common import init_params
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.sharding.partitioning import distribute
+    from repro_torch.train import init_opt_state, make_train_step, train_step_shardings
+
+    cfg = get_config("olmo-1b")
+    ocfg = opt_config(cfg, TRAIN_STEPS)
+    shape = ShapeSpec("phase16", TRAIN_S, TRAIN_B, "train")
+    runs = {}
+    for label in ("no mesh", "mesh"):
+        params = init_params(cfg, _gen(0), "cuda")
+        opt = init_opt_state(ocfg, params)
+        if label == "mesh":
+            ins, _ = train_step_shardings(cfg, ocfg, mesh, shape)
+            params, opt = distribute(params, ins[0]), distribute(opt, ins[1])
+        step_fn, data = make_train_step(cfg, ocfg), _data(cfg, TRAIN_B)
+        rows = []
+        flash_attention.LAUNCHES = 0
+        with use_mesh(mesh) if label == "mesh" else contextlib.nullcontext():
+            for _ in range(MESH_TRAIN_STEPS):
+                batch = next(data)
+                t0 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, batch)
+                torch.cuda.synchronize()
+                rows.append(dict({k: _scalar(v) for k, v in m.items()},
+                                 ms=(time.perf_counter() - t0) * 1e3))
+        runs[label] = (rows, flash_attention.LAUNCHES)
+        _log_steps(f"mesh train, {label}", rows, first=1)
+        del params, opt, m
+        _free()
+    (plain, _), (meshed, k4) = runs["no mesh"], runs["mesh"]
+    _finite("mesh train", plain + meshed)
+    _expect("mesh train", "K4", k4, 2 * cfg.num_layers * MESH_TRAIN_STEPS,
+            f"{MESH_TRAIN_STEPS} steps x {cfg.num_layers} layers x 2 (forward and recompute)")
+    rel = [(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]) for a, b in zip(meshed, plain)]
+    bitwise = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                  for a, b in zip(meshed, plain))
+    ms = {k: statistics.median(r["ms"] for r in runs[k][0][1:]) for k in runs}
+    log(f"[mesh train] {cfg.name} (published config, remat {cfg.remat}), B {TRAIN_B} x S "
+        f"{TRAIN_S}, {MESH_TRAIN_STEPS} steps placed by train_step_shardings on a (1,1) "
+        f"('data', 'model') mesh of one NCCL rank, against the same steps without a mesh: max "
+        f"rel loss {max(r[0] for r in rel):.3e} (limit {TRAIN_LOSS_REL}), max rel grad norm "
+        f"{max(r[1] for r in rel):.3e} (limit {TRAIN_GNORM_REL}); losses and grad norms "
+        f"{'equal bit for bit' if bitwise else 'not bit-equal'}; K4 launched {k4} times under "
+        f"the mesh; median step over steps 2-{MESH_TRAIN_STEPS}: {ms['mesh']:.3f} ms with the "
+        f"mesh, {ms['no mesh']:.3f} ms without (DTensor's host cost "
+        f"{ms['mesh'] - ms['no mesh']:.3f} ms a step) [{card}]")
+    if max(r[0] for r in rel) > TRAIN_LOSS_REL or max(r[1] for r in rel) > TRAIN_GNORM_REL:
+        raise RuntimeError("mesh train: the steps under the mesh disagree with the steps without")
+    return k4, ms["no mesh"]
+
+
+def _hand_off(cache: dict, max_len: int) -> dict:
+    """The prefill cache, whole, with the attention k/v padded along S to
+    ``max_len`` for decode (the engine's prefill -> decode hand-off)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for si, slot in cache.items():
+        out[si] = {}
+        for name, c in slot.items():
+            c = c.full_tensor() if isinstance(c, DTensor) else c
+            if name in ("k", "v"):  # (nP, B, Hkv, S, Dh)
+                c = F.pad(c, (0, 0, 0, max_len - c.shape[3]))
+            out[si][name] = c.contiguous()
+    return out
+
+
+def _mesh_greedy(cfg, params, prompt, mesh=None) -> torch.Tensor:
+    """A ``MESH_PROMPT``-token prefill through ``make_prefill_step`` and
+    ``MESH_STEPS`` greedy decode steps through ``make_serve_step``; under
+    ``mesh`` the params, batch and caches are placed by
+    ``prefill_shardings``/``serve_shardings``.  Returns the tokens."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.sharding.partitioning import distribute
+    from repro_torch.train import (make_prefill_step, make_serve_step, prefill_shardings,
+                                   serve_shardings)
+
+    B, S = prompt.shape
+    max_len = S + MESH_STEPS
+    batch = {"tokens": prompt}
+    pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    place = lambda tree, sh: tree
+    if mesh is not None:
+        pins, _ = prefill_shardings(cfg, mesh, ShapeSpec("prefill", S, B, "prefill"))
+        dins, _ = serve_shardings(cfg, mesh, ShapeSpec("decode", max_len, B, "decode"))
+        params, batch = distribute(params, pins[0]), distribute(batch, pins[1])
+        place = distribute
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        logits, cache = prefill(params, batch)
+        cache = _hand_off(cache, max_len)
+        tok = (logits.full_tensor() if mesh is not None else logits).argmax(-1).to(torch.int32)
+        if mesh is not None:
+            cache, tok, pos = place(cache, dins[1]), place(tok, dins[2]), place(pos, dins[3])
+        out = [tok]
+        for _ in range(MESH_STEPS):
+            tok, cache = serve(params, cache, tok, pos)
+            out.append(tok)
+            pos = pos + 1
+        full = [t.full_tensor() if mesh is not None else t for t in out]
+    return torch.stack(full, dim=1)
+
+
+def _mesh_serve(card, mesh) -> dict:
+    """Phase 17 (b): returns each kernel's launches under the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.dispatch.ops import dispatch
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ssd import LAUNCHES_PER_CALL as K5_PER_CALL
+    from repro_torch.models.common import init_params
+
+    launches = {"K3": 0, "K4": 0, "K5": 0}
+    for arch, layers in MESH_CUTS.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        t0 = time.perf_counter()
+        params = init_params(cfg, _gen(5), "cuda")
+        _made("mesh serve", cfg, t0, f" of {full.num_layers}")
+        prompt = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_PROMPT), generator=_gen(6),
+                               device="cuda", dtype=torch.int32)
+        want = _mesh_greedy(cfg, params, prompt)
+        dispatch.LAUNCHES = flash_attention.LAUNCHES = ssd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = _mesh_greedy(cfg, params, prompt, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"K3": dispatch.LAUNCHES, "K4": flash_attention.LAUNCHES, "K5": ssd.LAUNCHES}
+        n_moe = sum(f == "moe" for _, f in cfg.pattern) * cfg.num_periods
+        n_attn = sum(m == "attn" for m, _ in cfg.pattern) * cfg.num_periods
+        n_mamba = sum(m == "mamba" for m, _ in cfg.pattern) * cfg.num_periods
+        _expect("mesh serve", "K3", counts["K3"], (1 + MESH_STEPS) * n_moe,
+                f"(1 prefill + {MESH_STEPS} decode steps) x {n_moe} MoE layers")
+        _expect("mesh serve", "K4", counts["K4"], n_attn, f"1 prefill x {n_attn} attention layers")
+        _expect("mesh serve", "K5", counts["K5"], n_mamba * K5_PER_CALL,
+                f"1 prefill x {n_mamba} mamba layers x {K5_PER_CALL}")
+        same = bool(torch.equal(got, want))
+        log(f"[mesh serve] {cfg.name} with {layers} of {full.num_layers} layers at its published "
+            f"widths: B {MESH_B}, a {MESH_PROMPT}-token prefill and {MESH_STEPS} greedy decode "
+            f"steps through make_prefill_step / make_serve_step, placed by prefill_shardings / "
+            f"serve_shardings on the (1,1) mesh: tokens {'equal' if same else 'DIFFER from'} "
+            f"the run without a mesh ({got.shape[1]} a row); launches under the mesh {counts}; "
+            f"{wall:.3f} s [{card}]")
+        if not same:
+            raise RuntimeError(f"mesh serve: {cfg.name}'s tokens under the mesh differ: "
+                               f"{got.tolist()} vs {want.tolist()}")
+        for k in launches:
+            launches[k] += counts[k]
+        del params, prompt
+        _free()
+    return launches
+
+
+def _mesh_dryrun(card, measured_ms: float) -> None:
+    """Phase 17 (c): the dry-run and the roofline of olmo-1b on the 16x16
+    mesh, and the one-card bound of phase 16's cell, in subprocesses on the
+    ``fake`` backend (the CPU)."""
+    out = os.path.join(ROOT, "build", "phase17")
+    dry, roof = os.path.join(out, "dryrun"), os.path.join(out, "roofline")
+    for d in (dry, roof):
+        if os.path.exists(d):
+            for f in os.listdir(d):
+                os.remove(os.path.join(d, f))
+    t0 = time.perf_counter()
+    _subprocess(["-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b", "--mesh", "single",
+                 "--out", dry], PHASE17_TIMEOUT_S, "dryrun")
+    _subprocess(["-m", "repro_torch.launch.roofline", "--arch", "olmo-1b", "--out", roof,
+                 "--dryrun-results", os.path.join(dry, "results.jsonl")],
+                PHASE17_TIMEOUT_S, "roofline")
+    code = ("import json; from repro_torch.configs import ShapeSpec; "
+            "from repro_torch.launch import dryrun; "
+            f"r, _, _ = dryrun.lower_cell('olmo-1b', 'phase16', False, shape=ShapeSpec("
+            f"'phase16', {TRAIN_S}, {TRAIN_B}, 'train'), mesh_shape=((1, 1), ('data', 'model'))); "
+            "print(json.dumps(r))")
+    one = json.loads(_subprocess(["-c", code], PHASE17_TIMEOUT_S, "one-card dry-run")[-1])
+    secs = time.perf_counter() - t0
+    fields = ("compute_s", "memory_s", "collective_s", "bottleneck", "useful_flops_ratio")
+    for path, what in ((os.path.join(dry, "results.jsonl"), "dry-run"),
+                       (os.path.join(roof, "roofline.jsonl"), "roofline")):
+        with open(path) as f:
+            for line in f:
+                r = json.loads(line)
+                log(f"[mesh dryrun] {what} {r['arch']} {r['shape']} {r['mesh']}: "
+                    + ", ".join(f"{k} {r[k]}" for k in fields)
+                    + (f", body_flops {r['body_flops']}" if "body_flops" in r else "")
+                    + f" (H100 SXM5 data-sheet limits; eager plain-route counts)")
+    bound = max(one["compute_s"], one["memory_s"])
+    log(f"[mesh dryrun] one card, olmo-1b B {TRAIN_B} x S {TRAIN_S} train step: compute_s "
+        f"{one['compute_s']}, memory_s {one['memory_s']}, bottleneck {one['bottleneck']}, "
+        f"useful_flops_ratio {one['useful_flops_ratio']}; the step measured in (a) "
+        f"{measured_ms:.3f} ms is {measured_ms / 1e3 / one['compute_s']:.3f}x compute_s and "
+        f"{measured_ms / 1e3 / bound:.3f}x the larger term; subprocesses {secs:.1f} s [{card}]")
+
+
+def phase_mesh() -> dict:
+    """Phase 17: olmo-1b trained and the qwen2-moe and mamba2 cuts served
+    under a one-rank mesh through K4, K3 and K5; the dry-run and roofline.
+    Returns the kernels' launches under the mesh."""
+    t_phase = time.perf_counter()
+    card = _card()
+    _free()
+    with _one_rank_mesh() as mesh:
+        k4_train, step_ms = _mesh_train(card, mesh)
+        served = _mesh_serve(card, mesh)
+    _mesh_dryrun(card, step_ms)
+    _free()
+    log(f"[mesh] phase 17 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(served, K4=served["K4"] + k4_train)
+
+
 def main() -> None:
     device_name = phase_device()
     phase_build()
@@ -1933,13 +2208,17 @@ def main() -> None:
     train = phase_train()
     for run, n in train["K4_by_run"].items():
         k4_launches[f"{run} trained"] = n
+    meshed = phase_mesh()
+    k4_launches["under the one-rank mesh"] = meshed["K4"]
     flash_entry["launches"] = sum(k4_launches.values())
-    dispatch_entry["launches"] += train["K3"]
+    dispatch_entry["launches"] += train["K3"] + meshed["K3"]
+    ssd_entry["launches"] += meshed["K5"]
     log(f"[main] launches on the main paths: K4 {k4_launches}; K3 {dispatch_entry['launches']} "
         f"({k3_served - k3_phi} {MOE_ARCH} served, {k3_phi} {PHI_ARCH}, "
-        f"{jamba['launches']['K3']} {JAMBA_ARCH} served, {train['K3']} {MOE_ARCH} trained); "
-        f"K5 {ssd_entry['launches']} "
-        f"({k5_served} {SSM_ARCH} served, {jamba['launches']['K5']} {JAMBA_ARCH} served); the "
+        f"{jamba['launches']['K3']} {JAMBA_ARCH} served, {train['K3']} {MOE_ARCH} trained, "
+        f"{meshed['K3']} {MOE_ARCH} under the mesh); K5 {ssd_entry['launches']} "
+        f"({k5_served} {SSM_ARCH} served, {jamba['launches']['K5']} {JAMBA_ARCH} served, "
+        f"{meshed['K5']} {SSM_ARCH} under the mesh); the "
         "kernels line gives K3 and K5 at the served layer's shape of phases 9 and 11; K1 "
         f"{affine_entry['launches']} ({k1_stream} stream, "
         f"{affine_entry['launches'] - k1_stream} bench_core device_offload)")

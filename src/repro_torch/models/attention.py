@@ -18,6 +18,16 @@ chunked einsum path instead; both compute causal attention with scale
 ports, takes only queries and keys of one length.  ``attn_decode`` and
 ``attn_decode_quant`` stay plain tensor code and write the new k/v into the
 cache **in place**, where the JAX version returns an updated copy.
+
+Under a mesh the inputs are DTensors.  ``shard()`` stands where the JAX
+package constrains its activations, and K4, which takes raw pointers, runs
+inside ``local_map`` on each rank's (batch, head) shard: attention is local
+per batch row and head; so does cross-attention's plain score path (DTensor's
+batched products refuse an einsum whose batch dims are cut over two mesh
+dims).  When the kv heads do not split over 'model' but the query heads
+do, k and v are first expanded to the query heads, as the JAX package
+expands them.  A decode step writes the new k/v into each
+rank's own piece of the cache (:func:`write_at`).
 """
 from __future__ import annotations
 
@@ -25,8 +35,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels.attention.ops import flash_attention
+from ..sharding.context import get_mesh, local_apply, logical_spec, shard
 from .common import ModelConfig, apply_norm
 
 
@@ -58,11 +70,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------- QKV helpers
+def _heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(B, S, n*dh) -> (B, S, n, dh).  Under a mesh the projection is first
+    laid out batch over DP and heads over 'model' where n splits over it,
+    else replicated there: DTensor cannot cut a dim unevenly as JAX pads."""
+    mesh = get_mesh()
+    if mesh is not None and isinstance(t, DTensor):
+        t = shard(t, "dp", None, "tp" if logical_spec(mesh, (n,), ("tp",))[0] else None)
+    return t.reshape(t.shape[0], t.shape[1], n, dh)
+
+
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor):
-    B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, x.shape[1], cfg.num_heads, cfg.hd)
-    k = (kv_src @ p["wk"]).reshape(B, kv_src.shape[1], cfg.num_kv_heads, cfg.hd)
-    v = (kv_src @ p["wv"]).reshape(B, kv_src.shape[1], cfg.num_kv_heads, cfg.hd)
+    q = _heads(x @ p["wq"], cfg.num_heads, cfg.hd)
+    k = _heads(kv_src @ p["wk"], cfg.num_kv_heads, cfg.hd)
+    v = _heads(kv_src @ p["wv"], cfg.num_kv_heads, cfg.hd)
     return q, k, v
 
 
@@ -74,10 +95,71 @@ def _gqa_scores_full(cfg: ModelConfig, q, k, v):
     G = q.shape[2] // cfg.num_kv_heads
     if G > 1:
         k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    # under a mesh local per (batch, head), the layout the reference
+    # constrains q, k, v, the scores and the output to
+    return _local_heads(_full_scores, q, k, v)
+
+
+def _full_scores(q, k, v):
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def _causal_attention(q, k, v):
+    """Causal GQA attention through ``flash_attention`` (K4 on the card).
+    Under a mesh it runs inside ``local_apply`` on each rank's shard: batch
+    over the DP dims and heads over 'model', where they divide."""
+    return _local_heads(lambda a, b, c: flash_attention(
+        a.contiguous(), b.contiguous(), c.contiguous(), causal=True), q, k, v)
+
+
+def _local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` -> (B, Sq, H, Dh), local per batch row and head:
+    under a mesh on each rank's (batch, head) piece.  When the kv heads do
+    not split over 'model' but the query heads do, k and v are expanded to
+    the query heads first (as the JAX package expands them)."""
+    mesh = get_mesh()
+    if mesh is None or not isinstance(q, DTensor):
+        return fn(q, k, v)
+    dims = ("dp", None, "tp", None)
+    sq = logical_spec(mesh, q.shape, dims)
+    if sq[2] is not None and logical_spec(mesh, k.shape, dims)[2] is None:
+        G = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    return local_apply(fn, (q, k, v), (sq, sq, sq), sq)
+
+
+def write_at(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor) -> None:
+    """``cache[b, :, position[b]] = new[b]`` in place, for every b: cache
+    (B, Hkv, S, ...) and new (B, Hkv, ...).  On a DTensor cache each rank
+    writes into its own piece: new and position follow the cache's batch
+    (and trailing) shards, and a rank whose piece of S does not hold the
+    position keeps its old values there."""
+    if not isinstance(cache, DTensor):
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, :, position.long()] = new
+        return
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate()
+    new_pl, pos_pl, piece = [], [], 0
+    for j, pl in enumerate(cache.placements):
+        d = pl.dim if isinstance(pl, Shard) else None
+        new_pl.append(Shard(d - (d > 2)) if d is not None and d != 2 else Replicate())
+        pos_pl.append(Shard(0) if d == 0 else Replicate())
+        if d == 2:  # S split over this mesh dim (mesh order is major to minor)
+            piece = piece * mesh.size(j) + coord[j]
+    local = cache.to_local()
+    S_local = local.shape[2]
+    whole = [Replicate()] * mesh.ndim
+    as_dt = lambda t: t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, whole)
+    nl = as_dt(new).redistribute(mesh, new_pl).to_local()
+    lp = as_dt(position).redistribute(mesh, pos_pl).to_local().long() - piece * S_local
+    inside = ((lp >= 0) & (lp < S_local)).reshape((-1,) + (1,) * (nl.dim() - 1))
+    lp = lp.clamp(0, S_local - 1)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    local[bidx, :, lp] = torch.where(inside, nl, local[bidx, :, lp])
 
 
 def _causal_self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -86,7 +168,7 @@ def _causal_self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor):
     q, k, v = _project_qkv(cfg, p, h, h)
     cos, sin = rope_freqs(cfg, torch.arange(x.shape[1], device=x.device))
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    out = flash_attention(q, k, v, causal=True)  # kv heads read in place (GQA)
+    out = _causal_attention(q, k, v)  # kv heads read in place (GQA)
     B, S = x.shape[:2]
     y = x + (out.reshape(B, S, -1) @ p["wo"]).to(x.dtype)
     return y, k, v
@@ -106,7 +188,9 @@ def attn_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, max_len: int = 0):
     # cache layout: (B, Hkv, S, Dh), as in the JAX package
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)
     pad = max(max_len - S, 0)
-    return y, (F.pad(kc, (0, 0, 0, pad)), F.pad(vc, (0, 0, 0, pad)))
+    if pad:
+        kc, vc = F.pad(kc, (0, 0, 0, pad)), F.pad(vc, (0, 0, 0, pad))
+    return y, (kc, vc)
 
 
 def attn_decode(
@@ -126,19 +210,20 @@ def attn_decode(
     q, k, v = _project_qkv(cfg, p, h, h)  # q:(B,1,H,Dh) k/v:(B,1,Hkv,Dh)
     cos, sin = rope_freqs(cfg, position[:, None])  # (B,1,r/2)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    bidx = torch.arange(B, device=x.device)
     pos = position.long()
-    kc[bidx, :, pos] = k[:, 0]  # (B,Hkv,Dh)
-    vc[bidx, :, pos] = v[:, 0]
+    write_at(kc, k[:, 0], pos)  # (B,Hkv,Dh)
+    write_at(vc, v[:, 0], pos)
     G = cfg.num_heads // Hkv
-    qg = q.reshape(B, 1, Hkv, G, Dh)
+    # the query whole on every 'model' rank: the cache is S-sharded there
+    qg = shard(q, "dp", None, None, None).reshape(B, 1, Hkv, G, Dh)
     scores = torch.einsum("bqhgd,bhkd->bhgqk", qg, kc).float()
+    scores = shard(scores, "dp", None, None, None, "tp")
     scores = scores * (1.0 / math.sqrt(Dh))
     valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]  # (B,S)
     scores = scores.masked_fill(~valid[:, None, None, None], -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqk,bhkd->bqhgd", w, vc).reshape(B, 1, -1)
-    y = x + (out @ p["wo"]).to(x.dtype)
+    out = shard(torch.einsum("bhgqk,bhkd->bqhgd", w, vc), "dp", None, None, None, None)
+    y = x + (out.reshape(B, 1, -1) @ p["wo"]).to(x.dtype)
     return y, (kc, vc)
 
 
@@ -167,21 +252,22 @@ def attn_decode_quant(
         scale = a.abs().amax(-1) / 127.0 + 1e-9
         return torch.round(a / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
 
-    bidx = torch.arange(B, device=x.device)
     pos = position.long()
     for (qv, scale), c, sc in ((quant(k), kc, ks), (quant(v), vc, vs)):
-        c[bidx, :, pos] = qv
-        sc[bidx, :, pos] = scale
+        write_at(c, qv, pos)
+        write_at(sc, scale, pos)
 
     G = cfg.num_heads // Hkv
-    qg = q.reshape(B, 1, Hkv, G, Dh)
+    qg = shard(q, "dp", None, None, None).reshape(B, 1, Hkv, G, Dh)
     scores = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(), kc.float())
     scores = scores * ks[:, :, None, None, :]  # dequantize the scores, not the cache
+    scores = shard(scores, "dp", None, None, None, "tp")
     scores = scores * (1.0 / math.sqrt(Dh))
     valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]  # (B,S)
     scores = scores.masked_fill(~valid[:, None, None, None], -1e30)
     w = torch.softmax(scores, dim=-1) * vs[:, :, None, None, :]  # fold in the v scales
-    out = torch.einsum("bhgqk,bhkd->bqhgd", w, vc.float()).to(x.dtype).reshape(B, 1, -1)
+    out = torch.einsum("bhgqk,bhkd->bqhgd", w, vc.float()).to(x.dtype)
+    out = shard(out, "dp", None, None, None, None).reshape(B, 1, -1)
     y = x + (out @ p["wo"]).to(x.dtype)
     return y, cache
 
@@ -214,9 +300,10 @@ def cross_attn_decode(
     ek, ev = cache
     B, Hkv, Se, Dh = ek.shape
     h = apply_norm(cfg, x, p, "norm")
-    q = (h @ p["wq"]).reshape(B, 1, Hkv, cfg.num_heads // Hkv, Dh)
+    q = shard(h @ p["wq"], "dp", None, None).reshape(B, 1, Hkv, cfg.num_heads // Hkv, Dh)
     scores = torch.einsum("bqhgd,bhkd->bhgqk", q, ek).float()
     scores = scores * (1.0 / math.sqrt(Dh))
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqk,bhkd->bqhgd", w, ev).reshape(B, 1, -1)
-    return x + (out @ p["wo"]).to(x.dtype), cache
+    # heads whole before they merge (the encoder cache is Dh-sharded)
+    out = shard(torch.einsum("bhgqk,bhkd->bqhgd", w, ev), "dp", None, None, None, None)
+    return x + (out.reshape(B, 1, -1) @ p["wo"]).to(x.dtype), cache

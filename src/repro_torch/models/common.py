@@ -3,8 +3,8 @@
 
 Every architecture is described by a :class:`ModelConfig`; the parameter tree
 (shapes, dtypes, initializers) is generated once by ``param_defs`` so real
-init and shape checks can never diverge.  The JAX package's ``PartitionSpec``s
-are left out: sharding is a later slice of the port.
+init, abstract (``meta``) parameters and sharding specs can never diverge.
+The specs (``sharding.spec.P``) are the JAX package's, leaf for leaf.
 
 Layers are organized in *periods*, the smallest repeating pattern of
 (mixer, ffn) sublayer kinds; per-layer parameters carry a leading
@@ -13,7 +13,8 @@ Layers are organized in *periods*, the smallest repeating pattern of
 Every family and feature of the JAX package is here: dense attention + MLP,
 Mixture-of-Experts (``moe``), Mamba2 (``mamba``), the hybrid of both
 (jamba), cross-attention (``xattn``, llama-3.2-vision), the int8 KV cache
-(``kv_quant``) and ``seq_parallel`` (a no-op without a mesh).
+(``kv_quant``) and ``seq_parallel`` (the residual stream S-sharded over
+'model' under a mesh).
 """
 from __future__ import annotations
 
@@ -25,7 +26,13 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..sharding.spec import P
 from ..tree import unflatten
+
+# Physical mesh dim names (see launch/mesh.py).  Params are replicated over
+# "pod" (pure DP across pods; FSDP within a pod).
+FSDP_AXIS = "data"
+TP_AXIS = "model"
 
 
 @dataclass(frozen=True)
@@ -69,12 +76,12 @@ class ModelConfig:
     remat: str = "full"  # "full" | "dots" | "none"
     optim_moment_dtype: Any = torch.float32
     optim_master_fp32: bool = True
-    # sharding strategy knobs (kept for parity with the JAX config)
-    fsdp_params: bool = True
-    moe_ep: bool = False
-    kv_quant: bool = False
-    attn_bf16_scores: bool = False
-    seq_parallel: bool = False
+    # sharding strategy knobs (hillclimb levers)
+    fsdp_params: bool = True  # False: TP-only resident weights (serving)
+    moe_ep: bool = False  # True: experts sharded over the DP axis (EP serving)
+    kv_quant: bool = False  # True: int8 KV cache with per-position scales
+    attn_bf16_scores: bool = False  # kept for parity with the JAX config
+    seq_parallel: bool = False  # True: residual stream seq-sharded over 'model'
     # serving
     max_decode_batch: int = 128
     # metadata
@@ -145,35 +152,36 @@ def from_reference_config(fields: dict) -> ModelConfig:
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple
+    spec: P
     init: str = "normal"  # normal | zeros | ones | scaled(fan_in)
     dtype: Any = None  # None -> cfg.param_dtype
 
     def with_stack(self, n: int) -> "ParamDef":
-        return ParamDef((n,) + self.shape, self.init, self.dtype)
+        return ParamDef((n,) + self.shape, P(None, *self.spec), self.init, self.dtype)
 
 
 def _norm_defs(cfg: ModelConfig, prefix: str) -> dict:
     if cfg.norm_type == "nonparametric_ln":
         return {}
-    d = {f"{prefix}_scale": ParamDef((cfg.d_model,), "ones")}
+    d = {f"{prefix}_scale": ParamDef((cfg.d_model,), P(None), "ones")}
     if cfg.norm_type == "layernorm":
-        d[f"{prefix}_bias"] = ParamDef((cfg.d_model,), "zeros")
+        d[f"{prefix}_bias"] = ParamDef((cfg.d_model,), P(None), "zeros")
     return d
 
 
 def _inner_norm_defs(cfg: ModelConfig, prefix: str, dim: int) -> dict:
     if cfg.norm_type == "nonparametric_ln":
         return {}
-    return {f"{prefix}_scale": ParamDef((dim,), "ones")}
+    return {f"{prefix}_scale": ParamDef((dim,), P(None), "ones")}
 
 
 def _attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     defs = {
-        "wq": ParamDef((D, H * Dh)),
-        "wk": ParamDef((D, Hkv * Dh)),
-        "wv": ParamDef((D, Hkv * Dh)),
-        "wo": ParamDef((H * Dh, D), "scaled"),
+        "wq": ParamDef((D, H * Dh), P(FSDP_AXIS, TP_AXIS)),
+        "wk": ParamDef((D, Hkv * Dh), P(FSDP_AXIS, TP_AXIS)),
+        "wv": ParamDef((D, Hkv * Dh), P(FSDP_AXIS, TP_AXIS)),
+        "wo": ParamDef((H * Dh, D), P(TP_AXIS, FSDP_AXIS), "scaled"),
     }
     defs.update(_norm_defs(cfg, "norm"))
     if cross:
@@ -187,28 +195,33 @@ def _attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
 def _mlp_defs(cfg: ModelConfig) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     defs = {
-        "w_up": ParamDef((D, F)),
-        "w_down": ParamDef((F, D), "scaled"),
+        "w_up": ParamDef((D, F), P(FSDP_AXIS, TP_AXIS)),
+        "w_down": ParamDef((F, D), P(TP_AXIS, FSDP_AXIS), "scaled"),
     }
     if cfg.ffn_act == "swiglu":
-        defs["w_gate"] = ParamDef((D, F))
+        defs["w_gate"] = ParamDef((D, F), P(FSDP_AXIS, TP_AXIS))
     defs.update(_norm_defs(cfg, "ffn_norm"))
     return defs
 
 
 def _moe_defs(cfg: ModelConfig) -> dict:
     D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    if cfg.moe_ep:
+        # expert-parallel: experts resident, E/dp per DP rank
+        e_up, e_down = P(FSDP_AXIS, None, TP_AXIS), P(FSDP_AXIS, TP_AXIS, None)
+    else:
+        e_up, e_down = P(None, FSDP_AXIS, TP_AXIS), P(None, TP_AXIS, FSDP_AXIS)
     defs = {
-        "w_router": ParamDef((D, E), dtype=torch.float32),
-        "we_up": ParamDef((E, D, F)),
-        "we_gate": ParamDef((E, D, F)),
-        "we_down": ParamDef((E, F, D), "scaled"),
+        "w_router": ParamDef((D, E), P(FSDP_AXIS, None), dtype=torch.float32),
+        "we_up": ParamDef((E, D, F), e_up),
+        "we_gate": ParamDef((E, D, F), e_up),
+        "we_down": ParamDef((E, F, D), e_down, "scaled"),
     }
     if cfg.num_shared_experts:
         Fs = cfg.num_shared_experts * F
-        defs["ws_up"] = ParamDef((D, Fs))
-        defs["ws_gate"] = ParamDef((D, Fs))
-        defs["ws_down"] = ParamDef((Fs, D), "scaled")
+        defs["ws_up"] = ParamDef((D, Fs), P(FSDP_AXIS, TP_AXIS))
+        defs["ws_gate"] = ParamDef((D, Fs), P(FSDP_AXIS, TP_AXIS))
+        defs["ws_down"] = ParamDef((Fs, D), P(TP_AXIS, FSDP_AXIS), "scaled")
     defs.update(_norm_defs(cfg, "ffn_norm"))
     return defs
 
@@ -218,13 +231,13 @@ def _mamba_defs(cfg: ModelConfig) -> dict:
     conv_dim = Din + 2 * N  # x, B, C go through the causal conv
     defs = {
         # in_proj -> [z (gate), x, B, C, dt]
-        "in_proj": ParamDef((D, 2 * Din + 2 * N + H)),
-        "conv_w": ParamDef((cfg.ssm_conv_kernel, conv_dim)),
-        "conv_b": ParamDef((conv_dim,), "zeros"),
-        "A_log": ParamDef((H,), "ones", dtype=torch.float32),
-        "ssm_D": ParamDef((H,), "ones", dtype=torch.float32),
-        "dt_bias": ParamDef((H,), "zeros", dtype=torch.float32),
-        "out_proj": ParamDef((Din, D), "scaled"),
+        "in_proj": ParamDef((D, 2 * Din + 2 * N + H), P(FSDP_AXIS, TP_AXIS)),
+        "conv_w": ParamDef((cfg.ssm_conv_kernel, conv_dim), P(None, TP_AXIS)),
+        "conv_b": ParamDef((conv_dim,), P(TP_AXIS), "zeros"),
+        "A_log": ParamDef((H,), P(None), "ones", dtype=torch.float32),
+        "ssm_D": ParamDef((H,), P(None), "ones", dtype=torch.float32),
+        "dt_bias": ParamDef((H,), P(None), "zeros", dtype=torch.float32),
+        "out_proj": ParamDef((Din, D), P(TP_AXIS, FSDP_AXIS), "scaled"),
     }
     defs.update(_norm_defs(cfg, "norm"))
     defs.update(_inner_norm_defs(cfg, "gate_norm", Din))
@@ -245,27 +258,73 @@ def slot_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
     return defs
 
 
+def _strip_fsdp(defs: dict) -> dict:
+    """TP-only residency: remove the FSDP ('data') axis from every param spec
+    (serving configs: no per-layer weight all-gathers)."""
+
+    def strip(spec: P) -> P:
+        return P(*[None if a == FSDP_AXIS else a for a in spec])
+
+    return {k: ParamDef(d.shape, strip(d.spec), d.init, d.dtype) for k, d in defs.items()}
+
+
 def param_defs(cfg: ModelConfig) -> dict:
     """Full parameter tree: {dotted name: ParamDef}. Per-layer params carry a
     leading ``num_periods`` stack dim."""
     n = cfg.num_periods
     defs: dict[str, ParamDef] = {
-        "embed": ParamDef((cfg.padded_vocab, cfg.d_model)),
-        "lm_head": ParamDef((cfg.d_model, cfg.padded_vocab)),
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), P(TP_AXIS, FSDP_AXIS)),
+        "lm_head": ParamDef((cfg.d_model, cfg.padded_vocab), P(FSDP_AXIS, TP_AXIS)),
     }
     defs.update(_norm_defs(cfg, "final_norm"))
     for si, (mixer, ffn) in enumerate(cfg.pattern):
         for k, d in slot_defs(cfg, mixer, ffn).items():
             defs[f"layers.{si}.{k}"] = d.with_stack(n)
+    if not cfg.fsdp_params:
+        defs = _strip_fsdp(defs)
+    return defs
+
+
+def period_param_defs(cfg: ModelConfig) -> dict:
+    """One period's params without the stack dim (for the roofline's
+    standalone period bodies)."""
+    defs: dict[str, ParamDef] = {}
+    for si, (mixer, ffn) in enumerate(cfg.pattern):
+        for k, d in slot_defs(cfg, mixer, ffn).items():
+            defs[f"{si}.{k}"] = d
+    if not cfg.fsdp_params:
+        defs = _strip_fsdp(defs)
     return defs
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Nested {name: (shape, dtype)} tree, the counterpart of the JAX
-    package's ``abstract_params`` (nothing is allocated)."""
+    """Nested {name: (shape, dtype)} tree (nothing is allocated)."""
     return unflatten(
         {k: (d.shape, d.dtype or cfg.param_dtype) for k, d in param_defs(cfg).items()}
     )
+
+
+def _abstract(cfg: ModelConfig, defs: dict) -> dict:
+    return unflatten({k: torch.empty(d.shape, dtype=d.dtype or cfg.param_dtype, device="meta")
+                      for k, d in defs.items()})
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no data):
+    the counterpart of the JAX package's ``ShapeDtypeStruct`` tree."""
+    return _abstract(cfg, param_defs(cfg))
+
+
+def abstract_period_params(cfg: ModelConfig) -> dict:
+    return _abstract(cfg, period_param_defs(cfg))
+
+
+def param_pspecs(cfg: ModelConfig) -> dict:
+    return unflatten({k: d.spec for k, d in param_defs(cfg).items()})
+
+
+def period_pspecs(cfg: ModelConfig) -> dict:
+    return unflatten({k: d.spec for k, d in period_param_defs(cfg).items()})
 
 
 def init_params(cfg: ModelConfig, generator, device=None) -> dict:

@@ -12,10 +12,15 @@ package ranks with a stable sort in ``moe_dispatch_rowwise``; both keep
 arrival order within an expert, so the same assignments are dropped.  K3
 marks a dropped assignment -1 where the reference uses ``E*C``, and the
 combine sums each token's k expert outputs in a fixed order where the
-reference scatter-adds them.)  The JAX
-package's row layout and ``shard_map`` serve data-parallel meshes and its
-``moe_ep`` branch expert parallelism; on one device both compute what
-``moe`` below computes with one row.
+reference scatter-adds them.)
+
+Under a mesh (:func:`_moe_rows`) the tokens are split into R rows, R = the
+DP shard count (pod x data) where it divides the tokens, as in the JAX
+package: each row routes its Tl = T/R tokens with its own capacity, so
+which assignments are dropped depends on the mesh.  The dispatch and the
+combine run per row inside ``local_map`` (``local_apply``) over the DP dims
+(the reference's ``shard_map``): each DP rank holds one row and calls the
+same one-row K3 on it.  ``moe_ep`` keeps one row and shards the expert buffers over DP.
 """
 from __future__ import annotations
 
@@ -23,8 +28,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels.dispatch.ops import dispatch
+from ..sharding.context import get_mesh, local_apply, shard
+from ..sharding.partitioning import axis_size, dp_axes
+from ..sharding.spec import P
 from .common import ModelConfig, apply_norm
 
 
@@ -36,8 +45,8 @@ def _act(cfg: ModelConfig, up: torch.Tensor, gate) -> torch.Tensor:
 
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg, x, p, "ffn_norm")
-    up = h @ p["w_up"]
-    gate = h @ p["w_gate"] if "w_gate" in p else None
+    up = shard(h @ p["w_up"], "dp", None, "tp")  # d_ff over 'model' (Megatron TP)
+    gate = shard(h @ p["w_gate"], "dp", None, "tp") if "w_gate" in p else None
     return x + (_act(cfg, up, gate) @ p["w_down"]).to(x.dtype)
 
 
@@ -47,8 +56,106 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(int(math.ceil(tokens * cfg.top_k / cfg.num_experts * cfg.capacity_factor)), 4)
 
 
+def _num_rows(mesh, tokens: int) -> int:
+    """R = the product of the mesh's DP dims (pod, data) where it divides
+    ``tokens``, else 1; 1 without a mesh."""
+    if mesh is None:
+        return 1
+    r = 1
+    for a in ("pod", "data"):
+        if a in mesh.mesh_dim_names:
+            r *= axis_size(mesh, a)
+    return r if tokens % r == 0 else 1
+
+
+def _combine(out_flat, dest, top_v, k: int):
+    """A token's output: its k assignments' expert rows, each weighted by
+    its gate (zero where dropped), summed in a fixed order (a token's k
+    assignments are adjacent rows).  out_flat (E*C, D), dest (T*k,), top_v
+    (T, k) -> (T, D)."""
+    keep = dest >= 0
+    combine = top_v.reshape(-1).to(out_flat.dtype)
+    pa = out_flat[dest.clamp(min=0).long()] * keep[:, None].to(out_flat.dtype) * combine[:, None]
+    # (a scatter-add, index_add_, adds with atomics on the card, in an order
+    # that changes from run to run)
+    return pa.reshape(-1, k, out_flat.shape[-1]).sum(dim=1)
+
+
+def _moe_rows(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe`` under a mesh, on DTensors: the JAX package's row layout."""
+    B, S, D = x.shape
+    T = B * S
+    E, k = cfg.num_experts, cfg.top_k
+    R = 1 if cfg.moe_ep else _num_rows(mesh, T)
+    Tl = T // R
+    # batch over the DP dims before the rows are cut: a stream left S-sharded
+    # over 'model' would cut them in a strided layout DTensor's views refuse
+    h_all = shard(apply_norm(cfg, x, p, "ffn_norm"), "dp", None, None).reshape(T, D)
+    h = shard(h_all.reshape(R, Tl, D), "dp", None, None)
+
+    # the router whole on every rank (its d_model dim is FSDP-cut over 'data',
+    # which the rows hold): gates and their gradient keep the rows' layout
+    router = shard(p["w_router"], None, None)
+    gates = torch.softmax(torch.einsum("rtd,de->rte", h.float(), router), dim=-1)
+    gates = shard(gates, "dp", None, None)  # and their gradient, whatever reaches it
+    top_v, top_i = torch.topk(gates, k, dim=-1)  # (R, Tl, k)
+    top_v = top_v / top_v.sum(-1, keepdim=True).clamp(min=1e-9)
+    ids = top_i.reshape(R, Tl * k).to(torch.int32)
+    capacity = moe_capacity(cfg, Tl)
+
+    # each row's dispatch and combine on the rank that holds it: rows over
+    # the DP dims when there are R > 1 of them, else one row on every rank
+    rows = lambda nd: P(dp_axes(mesh) if R > 1 else None, *([None] * (nd - 1)))
+
+    def _dispatch(ids_r, h_r):
+        outs = [dispatch(i.contiguous(), hr.contiguous(), E, capacity, group=k)
+                for i, hr in zip(ids_r, h_r)]
+        return (torch.stack([o[0] for o in outs]), torch.stack([o[2] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    def _gather_combine(f_r, d_r, v_r):
+        return torch.stack([_combine(f, d, v, k) for f, d, v in zip(f_r, d_r, v_r)])
+
+    buf, dest, counts = local_apply(_dispatch, (ids, h), (rows(2), rows(3)),
+                                    (rows(4), rows(2), rows(2)))
+
+    # aux load-balance loss (Switch-style): E * sum_e f_e * P_e, the
+    # assignment counts per row (before the capacity clamp) averaged over rows
+    me = gates.mean(dim=(0, 1))
+    ce = counts.float().mean(0) / (Tl * k)
+    aux = E * torch.sum(me * ce)
+
+    buf = buf.reshape(R, E, capacity, D)
+    dp = None if cfg.moe_ep else "dp"
+    ep = "dp" if cfg.moe_ep else None
+    buf = shard(buf, dp, ep, None, None)
+    # the expert weights gathered over 'data' (FSDP) unless experts live there
+    w_up, w_gate, w_down = p["we_up"], p["we_gate"], p["we_down"]
+    if not cfg.moe_ep:
+        w_up, w_gate = (shard(w, None, None, "tp") for w in (w_up, w_gate))
+        w_down = shard(w_down, None, "tp", None)
+    up = shard(torch.einsum("recd,edf->recf", buf, w_up), dp, ep, None, "tp")
+    gate = shard(torch.einsum("recd,edf->recf", buf, w_gate), dp, ep, None, "tp")
+    down = torch.einsum("recf,efd->recd", F.silu(gate) * up, w_down)
+    # experts whole before they merge with the slots (E rarely splits evenly)
+    down = shard(down, dp, None, None, None)
+    out_flat = shard(down.reshape(R, E * capacity, D), dp, None, None)
+
+    y = local_apply(_gather_combine, (out_flat, dest, top_v), (rows(3), rows(2), rows(3)),
+                    rows(3))
+    y = shard(y, "dp", None, None).reshape(T, D)
+
+    if cfg.num_shared_experts:
+        y = y + (F.silu(h_all @ p["ws_gate"]) * (h_all @ p["ws_up"])) @ p["ws_down"]
+    return x + y.reshape(B, S, D).to(x.dtype), aux
+
+
 def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (residual output, load-balancing aux loss)."""
+    mesh = get_mesh()
+    if mesh is not None and isinstance(x, DTensor):
+        return _moe_rows(cfg, p, x, mesh)
     B, S, D = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.top_k
@@ -72,13 +179,7 @@ def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch
     gate = torch.bmm(buf, p["we_gate"])
     out_flat = torch.bmm(F.silu(gate) * up, p["we_down"]).reshape(E * capacity, D)
 
-    keep = dest >= 0
-    combine = top_v.reshape(T * k).to(x.dtype)
-    pa = out_flat[dest.clamp(min=0).long()] * keep[:, None].to(x.dtype) * combine[:, None]
-    # a token's k assignments are adjacent rows: sum them in a fixed order
-    # (a scatter-add, index_add_, adds with atomics on the card, in an order
-    # that changes from run to run)
-    y = pa.reshape(T, k, D).sum(dim=1)
+    y = _combine(out_flat, dest, top_v, k)
 
     if cfg.num_shared_experts:
         y = y + (F.silu(h @ p["ws_gate"]) * (h @ p["ws_up"])) @ p["ws_down"]

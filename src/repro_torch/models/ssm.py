@@ -11,6 +11,13 @@ the card, the plain ``ssd_chunked`` in f32 on the CPU.  (The JAX package's
 zero state, which is what K5 takes.)  ``mamba_train`` stays on the plain
 ``ssd_chunked``, the reference's default, because K5 has no backward.
 
+Under a mesh the scan (K5, which takes raw pointers, or the plain
+``ssd_chunked``) runs inside ``local_map`` on each rank's (batch, head)
+shard: it is local per batch row and head (the reference constrains its
+decay matrix to that layout), and DTensor's batched products refuse an
+einsum whose batch dims are cut over two mesh dims.  So does the depthwise
+convolution.
+
 Shapes (one group): x (B,L,H,P), dt (B,L,H), A (H,), B and C (B,L,N);
 state (B,H,P,N).
 """
@@ -18,9 +25,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_chunked, ssd_decode_step
+from ..sharding.context import get_mesh, local_apply, logical_spec, shard
+from ..sharding.spec import P
 from .common import ModelConfig, apply_norm, inner_norm
 
 
@@ -34,7 +44,18 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d, then SiLU.  xBC (B,L,Cd), w (K,Cd): one
     grouped convolution (a cross-correlation, as ``conv_general_dilated``)
-    over the input left-padded with K-1 zeros."""
+    over the input left-padded with K-1 zeros.  Under a mesh it runs inside
+    ``local_apply`` (DTensor's convolution rule does not split the groups of
+    a depthwise convolution): batch over the DP dims, channels over 'model'."""
+    mesh = get_mesh()
+    if mesh is not None and isinstance(xBC, DTensor):
+        b_, c = logical_spec(mesh, (xBC.shape[0], xBC.shape[2]), ("dp", "tp"))
+        return local_apply(_conv, (xBC, w, b), (P(b_, None, c), P(None, c), P(c)),
+                           P(b_, None, c))
+    return _conv(xBC, w, b)
+
+
+def _conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     K, Cd = w.shape
     out = F.conv1d(F.pad(xBC.transpose(1, 2), (K - 1, 0)), w.t()[:, None, :], groups=Cd)
     return F.silu(out.transpose(1, 2) + b[None, None, :])
@@ -44,24 +65,42 @@ def _pad_len(L: int, chunk: int) -> int:
     return (chunk - L % chunk) % chunk
 
 
+def _local_scan(fn, xh, dt, A, Bm, Cm):
+    """``fn(xh, dt, A, Bm, Cm) -> (y, hT)``; under a mesh inside
+    ``local_apply``, batch over the DP dims and heads over 'model' where
+    they divide: the scan is local per batch row and head."""
+    mesh = get_mesh()
+    if mesh is None or not isinstance(xh, DTensor):
+        return fn(xh, dt, A, Bm, Cm)
+    b, h = logical_spec(mesh, (xh.shape[0], xh.shape[2]), ("dp", "tp"))
+    return local_apply(fn, (xh, dt, A, Bm, Cm),
+                       (P(b, None, h, None), P(b, None, h), P(h), P(b, None, None),
+                        P(b, None, None)),
+                       (P(b, None, h, None), P(b, h, None, None)))
+
+
 def _run_ssd(cfg: ModelConfig, xh, dt, A, Bm, Cm, use_kernel: bool):
     """Pads L to a chunk multiple with dt=0 (identity steps: no decay, no
-    input) so the final state is exact, then truncates the output.  With
-    ``use_kernel`` the scan goes through ``ops.ssd`` (K5 on the card), which
-    takes contiguous f32 inputs."""
+    input) so the final state is exact, scans, then truncates the output;
+    under a mesh all three on each rank's piece.  With ``use_kernel`` the
+    scan goes through ``ops.ssd`` (K5 on the card), which takes contiguous
+    f32 inputs."""
     L = xh.shape[1]
     pad = _pad_len(L, cfg.ssm_chunk)
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-    if use_kernel:
-        xh, dt, Bm, Cm = (t.contiguous() for t in (xh, dt, Bm, Cm))
-        y, hT = ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    else:
-        y, hT = ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    return y[:, :L], hT
+
+    def scan(xh, dt, A, Bm, Cm):
+        if pad:
+            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            Bm = F.pad(Bm, (0, 0, 0, pad))
+            Cm = F.pad(Cm, (0, 0, 0, pad))
+        if use_kernel:  # K5 on the card, which takes contiguous inputs
+            y, hT = ssd(*(t.contiguous() for t in (xh, dt, A, Bm, Cm)), chunk=cfg.ssm_chunk)
+        else:
+            y, hT = ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+        return y[:, :L], hT
+
+    return _local_scan(scan, xh, dt, A, Bm, Cm)
 
 
 def _mix(cfg: ModelConfig, p: dict, xres: torch.Tensor, use_kernel: bool):
@@ -70,7 +109,10 @@ def _mix(cfg: ModelConfig, p: dict, xres: torch.Tensor, use_kernel: bool):
     B, L, _ = xres.shape
     Din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     h = apply_norm(cfg, xres, p, "norm")
-    z, xBC_raw, dt = _split_proj(cfg, h @ p["in_proj"])
+    zxbcdt = h @ p["in_proj"]
+    if not use_kernel:  # the reference constrains mamba_train's projection only
+        zxbcdt = shard(zxbcdt, "dp", None, "tp")
+    z, xBC_raw, dt = _split_proj(cfg, zxbcdt)
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
     xs, Bm, Cm = torch.split(xBC, [Din, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])

@@ -14,9 +14,15 @@ package's ``lax.scan`` over periods is a Python loop here that indexes the
 stacked parameters.  ``decode_step`` writes the new k/v (int8 values and f32
 scales under ``kv_quant``), and a mamba layer's new ssm and conv states,
 into the cache in place and returns the same cache object; the encoder k/v
-of a cross-attention layer are only read.  ``seq_parallel`` changes nothing
-here: it places the residual stream on a mesh in the JAX package, and the
-port has no mesh.
+of a cross-attention layer are only read.
+
+Under a mesh (``sharding.context.use_mesh``) the same functions take DTensor
+parameters, batches and caches (placed by ``train.train_step``'s
+``*_shardings``): the model code's ``shard()`` calls redistribute its
+activations where the JAX package constrains them, plain tensors made
+inside (masks, positions, zeros) count as replicated, and
+``seq_parallel`` shards the residual stream's sequence dim over 'model'
+between blocks.  Without a mesh every ``shard()`` returns its input.
 
 Training recomputes activations as ``cfg.remat`` says, with
 ``torch.utils.checkpoint`` in place of ``jax.checkpoint``: ``"full"``
@@ -33,6 +39,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -41,6 +48,8 @@ from . import ffn as ffn_mod
 from . import ssm
 from .common import ModelConfig, apply_norm
 from .. import default_device
+from ..sharding.context import get_mesh, local_apply, logical_spec, mesh_scope, shard
+from ..sharding.spec import P
 
 # {"<slot>": leaves}, every leaf with a leading num_periods dim: an attn slot
 # holds "k", "v" (nP,B,Hkv,S,Dh), in int8 under kv_quant with f32 "k_scale",
@@ -79,11 +88,27 @@ def _remat(cfg: ModelConfig, fn):
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
     elif cfg.remat != "full":
         raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+    return lambda *args: checkpoint(_scoped(fn), *args, use_reentrant=False, **kw)
+
+
+def _scoped(fn):
+    """``fn`` inside ``mesh_scope``: a checkpoint's recompute runs in the
+    backward pass, outside the scope its forward ran in."""
+    def run(*args):
+        with mesh_scope():
+            return fn(*args)
+    return run
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"].to(cfg.dtype)[tokens]
+    table = params["embed"].to(cfg.dtype)
+    if get_mesh() is None or not isinstance(table, DTensor):
+        return table[tokens]
+    # under a mesh the table is gathered whole (FSDP) and each rank looks up
+    # its batch rows: the stream starts batch-sharded over the DP dims
+    b = logical_spec(get_mesh(), tokens.shape[:1], ("dp",))[0]
+    return local_apply(lambda t, ids: t[ids], (table, tokens), (P(None, None), P(b, None)),
+                       P(b, None, None))
 
 
 def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -94,6 +119,13 @@ def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits + torch.where(pad, -1e30, 0.0)
     return logits
+
+
+def _stream(cfg: ModelConfig, h: torch.Tensor, seq: bool = True) -> torch.Tensor:
+    """Between blocks the residual stream (B, S, D) is batch-sharded over
+    the DP dims and, under ``seq_parallel`` after an attention block or its
+    FFN (Megatron-SP), S-sharded over 'model' (a no-op without a mesh)."""
+    return shard(h, "dp", "tp" if seq and cfg.seq_parallel else None, None)
 
 
 # ------------------------------------------------------------- period bodies
@@ -108,7 +140,7 @@ def apply_period_train(
     nested = cfg.remat != "none" and len(cfg.pattern) > 1
 
     def ck(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False) if nested else fn(*args)
+        return checkpoint(_scoped(fn), *args, use_reentrant=False) if nested else fn(*args)
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for si, (mixer, ffn_kind) in enumerate(cfg.pattern):
@@ -119,8 +151,10 @@ def apply_period_train(
             h = ck(lambda hh, pp=sp: attn.cross_attn(cfg, pp["xattn"], hh, encoder_states), h)
         elif mixer == "mamba":
             h = ck(lambda hh, pp=sp: ssm.mamba_train(cfg, pp["mamba"], hh), h)
+        h = _stream(cfg, h, mixer != "mamba")
         h, a = ck(lambda hh, pp=sp, kind=ffn_kind: ffn_mod.apply_ffn(cfg, kind, pp.get(kind, {}),
                                                                      hh), h)
+        h = _stream(cfg, h, mixer != "mamba")
         aux = aux + a
     return h, aux
 
@@ -147,7 +181,9 @@ def apply_period_prefill(
         elif mixer == "mamba":
             h, (hT, conv) = ssm.mamba_prefill(cfg, sp["mamba"], h)
             cache_slice[str(si)] = {"ssm": hT, "conv": conv}
+        h = _stream(cfg, h, mixer != "mamba")
         h, _ = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
+        h = _stream(cfg, h, mixer != "mamba")
     return h, cache_slice
 
 
@@ -173,7 +209,9 @@ def apply_period_decode(
             h, (hn, conv) = ssm.mamba_decode(cfg, sp["mamba"], h, (cs["ssm"], cs["conv"]))
             cs["ssm"].copy_(hn)
             cs["conv"].copy_(conv)
+        h = _stream(cfg, h, False)
         h, _ = ffn_mod.apply_ffn(cfg, ffn_kind, sp.get(ffn_kind, {}), h)
+        h = _stream(cfg, h, False)
     return h
 
 
@@ -187,13 +225,14 @@ def forward_train(
     """tokens (B, S) -> (logits (B, S, padded_vocab) in fp32, the MoE
     load-balancing aux loss summed over layers, a scalar).  Each period is
     checkpointed as ``cfg.remat`` says."""
-    x = _embed(cfg, params, tokens)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    body = _remat(cfg, lambda h, lp: apply_period_train(cfg, h, lp, encoder_states))
-    for lp in _unstack(params["layers"], cfg.num_periods):
-        x, a = body(x, lp)
-        aux = aux + a
-    return _unembed(cfg, params, x), aux
+    with mesh_scope():
+        x = _embed(cfg, params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        body = _remat(cfg, lambda h, lp: apply_period_train(cfg, h, lp, encoder_states))
+        for lp in _unstack(params["layers"], cfg.num_periods):
+            x, a = body(x, lp)
+            aux = aux + a
+        return _unembed(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -201,15 +240,16 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, 
     optional "loss_mask" (B, S) and "encoder_states"), plus 0.01 x the MoE
     aux loss: (total, {"nll", "aux"}), 0-d f32 tensors."""
     logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("encoder_states"))
-    logp = torch.log_softmax(logits, dim=-1)
-    labels = batch["labels"].long()
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    mask = batch.get("loss_mask")
-    if mask is None:
-        loss = nll.mean()
-    else:
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    total = loss + 0.01 * aux
+    with mesh_scope():
+        logp = torch.log_softmax(logits, dim=-1)
+        labels = batch["labels"].long()
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            loss = nll.mean()
+        else:
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        total = loss + 0.01 * aux
     return total, {"nll": loss, "aux": aux}
 
 
@@ -222,19 +262,20 @@ def prefill(
     max_len: int = 0,
 ) -> tuple[torch.Tensor, Cache]:
     """tokens (B, S) -> (last-position logits (B, V), cache padded to max_len)."""
-    x = _embed(cfg, params, tokens)
-    slices = []
-    for i in range(cfg.num_periods):
-        x, cs = apply_period_prefill(
-            cfg, x, _period(params["layers"], i), encoder_states, max_len
-        )
-        slices.append(cs)
-    cache = {
-        si: {name: torch.stack([cs[si][name] for cs in slices]) for name in slices[0][si]}
-        for si in slices[0]
-    }
-    logits = _unembed(cfg, params, x[:, -1:, :])[:, 0, :]
-    return logits, cache
+    with mesh_scope():
+        x = _embed(cfg, params, tokens)
+        slices = []
+        for i in range(cfg.num_periods):
+            x, cs = apply_period_prefill(
+                cfg, x, _period(params["layers"], i), encoder_states, max_len
+            )
+            slices.append(cs)
+        cache = {
+            si: {name: torch.stack([cs[si][name] for cs in slices]) for name in slices[0][si]}
+            for si in slices[0]
+        }
+        logits = _unembed(cfg, params, x[:, -1:, :])[:, 0, :]
+        return logits, cache
 
 
 # --------------------------------------------------------------------- decode
@@ -245,24 +286,23 @@ def decode_step(
     cache: Cache,  # leading num_periods dim on every leaf; updated in place
     position: torch.Tensor,  # (B,) write index (= #tokens so far)
 ) -> tuple[torch.Tensor, Cache]:
-    x = _embed(cfg, params, token[:, None])  # (B, 1, D)
-    for i in range(cfg.num_periods):
-        x = apply_period_decode(
-            cfg, x, _period(params["layers"], i), _period(cache, i), position
-        )
-    return _unembed(cfg, params, x)[:, 0, :], cache
+    with mesh_scope():
+        x = _embed(cfg, params, token[:, None])  # (B, 1, D)
+        for i in range(cfg.num_periods):
+            x = apply_period_decode(
+                cfg, x, _period(params["layers"], i), _period(cache, i), position
+            )
+        return _unembed(cfg, params, x)[:, 0, :], cache
 
 
 # ---------------------------------------------------------------- cache
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Cache:
-    """Zeroed cache (the JAX package's ``abstract_cache``, allocated), slot
-    by slot as ``Cache`` above says."""
-    dev = default_device(device)
-    nP, Dh, Hkv = cfg.num_periods, cfg.hd, cfg.num_kv_heads
-    cache: Cache = {}
+def _cache_slice_leaves(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """{slot: {name: (shape, dtype)}} of one period's cache slice."""
+    Dh, Hkv = cfg.hd, cfg.num_kv_heads
+    out: dict = {}
     for si, (mixer, _ffn) in enumerate(cfg.pattern):
         if mixer == "attn":
-            shape = (nP, batch, Hkv, max_len, Dh)
+            shape = (batch, Hkv, max_len, Dh)
             if cfg.kv_quant:
                 leaves = {"k": (shape, torch.int8), "v": (shape, torch.int8),
                           "k_scale": (shape[:-1], torch.float32),
@@ -270,22 +310,45 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Cache
             else:
                 leaves = {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
         elif mixer == "xattn":
-            shape = (nP, batch, Hkv, cfg.num_encoder_tokens, Dh)
+            shape = (batch, Hkv, cfg.num_encoder_tokens, Dh)
             leaves = {"ek": (shape, cfg.dtype), "ev": (shape, cfg.dtype)}
         elif mixer == "mamba":
             conv_dim = cfg.d_inner + 2 * cfg.ssm_state
             leaves = {
-                "ssm": ((nP, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-                        torch.float32),
-                "conv": ((nP, batch, cfg.ssm_conv_kernel - 1, conv_dim), cfg.dtype),
+                "ssm": ((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32),
+                "conv": ((batch, cfg.ssm_conv_kernel - 1, conv_dim), cfg.dtype),
             }
         else:
             raise ValueError(f"{cfg.name}: unknown mixer {mixer!r} in slot {si}")
-        cache[str(si)] = {
-            name: torch.zeros(shape, dtype=dtype, device=dev)
-            for name, (shape, dtype) in leaves.items()
-        }
-    return cache
+        out[str(si)] = leaves
+    return out
+
+
+def _cache_of(leaves: dict, lead: tuple, make) -> Cache:
+    return {si: {name: make(lead + shape, dtype) for name, (shape, dtype) in slot.items()}
+            for si, slot in leaves.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Cache:
+    """Zeroed cache (``abstract_cache``, allocated), slot by slot as
+    ``Cache`` above says."""
+    dev = default_device(device)
+    return _cache_of(_cache_slice_leaves(cfg, batch, max_len), (cfg.num_periods,),
+                     lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def abstract_cache_slice(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
+    """``meta`` tensors for ONE period's cache slice (no data)."""
+    return _cache_of(_cache_slice_leaves(cfg, batch, max_len), (), _meta)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
+    """``meta`` tensors for the full cache (leading num_periods dim)."""
+    return _cache_of(_cache_slice_leaves(cfg, batch, max_len), (cfg.num_periods,), _meta)
 
 
 # ------------------------------------------------------------------ greedy gen

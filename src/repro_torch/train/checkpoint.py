@@ -13,9 +13,13 @@ atomic ``os.rename``, so a crash mid-save never corrupts the latest
 checkpoint; the manager keeps the newest ``keep``.  ``extra`` carries the
 data pipeline's cursor (``{"data_serial": n}``) for exactly-once resume.
 
-The reference's ``restore(shardings=...)`` places leaves on a mesh; the
-port has no mesh yet, and ``restore(device=...)`` puts every leaf on one
-device (the card unless the caller says ``"cpu"``).
+``restore(shardings=...)`` places each leaf on a mesh by a tree of
+``NamedSharding`` (``distribute_tensor``), which makes an elastic restore
+onto any mesh; without it ``restore(device=...)`` puts every leaf on one
+device (the card unless the caller says ``"cpu"``).  A state of DTensors is
+saved whole: every rank gathers each leaf (``full_tensor``), rank 0 writes
+the files, so they are byte-identical to those of the same state on one
+device.
 """
 from __future__ import annotations
 
@@ -27,8 +31,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import default_device
+from ..sharding.partitioning import place
 from ..tree import flatten, unflatten
 
 # logical dtype -> (torch dtype, the unsigned view stored in the .npy file)
@@ -67,6 +74,19 @@ class CheckpointManager:
         metadata (e.g. {"data_serial": 12345}, the ordered stream's replay
         cursor).  Returns the published directory."""
         flat = flatten(state)
+        final = os.path.join(self.directory, f"step_{step:010d}")
+        if any(isinstance(t, DTensor) for t in flat.values()):
+            flat = {k: t.full_tensor() if isinstance(t, DTensor) else t for k, t in flat.items()}
+            if dist.get_rank() != 0:  # rank 0 writes; the others wait until it has published
+                dist.barrier()
+                return final
+            try:
+                return self._write(step, flat, extra, final)
+            finally:
+                dist.barrier()
+        return self._write(step, flat, extra, final)
+
+    def _write(self, step: int, flat: dict, extra: Optional[dict], final: str) -> str:
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=".tmp_save_")
         manifest = {"step": step, "extra": extra or {}, "leaves": {}}
         for name, t in flat.items():
@@ -80,7 +100,6 @@ class CheckpointManager:
             }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
-        final = os.path.join(self.directory, f"step_{step:010d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic publish
@@ -104,10 +123,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, device=None) -> tuple[int, dict, dict]:
-        """Returns (step, state, extra), every leaf a new tensor on
+    def restore(self, step: Optional[int] = None, shardings=None,
+                device=None) -> tuple[int, dict, dict]:
+        """Returns (step, state, extra).  ``shardings``: a tree of
+        ``NamedSharding`` matching the state; each leaf becomes a DTensor on
+        its mesh and placements.  Without it every leaf is a new tensor on
         ``device`` (``None``: the card; raises without one)."""
-        dev = default_device(device)
+        flat_shard = flatten(shardings) if shardings is not None else {}
+        dev = None if shardings is not None else default_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -117,8 +140,10 @@ class CheckpointManager:
             manifest = json.load(f)
         flat = {}
         for name, meta in manifest["leaves"].items():
-            host = np.load(os.path.join(path, meta["file"]))
-            flat[name] = _from_host(host, meta["dtype"]).to(dev)
+            host = _from_host(np.load(os.path.join(path, meta["file"])), meta["dtype"])
+            sh = flat_shard.get(name)
+            flat[name] = (place(host.to(sh.mesh.device_type), sh) if sh is not None
+                          else host.to(dev))
         return manifest["step"], unflatten(flat), manifest["extra"]
 
 

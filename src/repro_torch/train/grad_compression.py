@@ -7,9 +7,10 @@ int8 payloads and the scales over a ``torch.distributed`` group (a quarter
 of the bytes of an f32 all-reduce on the wire), dequantizes and sums them
 locally, and keeps its quantization residual as error feedback for the next
 step (Karimireddy et al.: error feedback removes the bias of the
-quantizer).  The reference runs this inside ``shard_map`` over the mesh's
-``pod`` axis; here the axis is a process group (gloo on the CPU, NCCL on
-cards).
+quantizer).  :func:`make_compressed_allreduce` runs it over a process group
+(gloo on the CPU, NCCL on cards); :func:`make_compressed_psum` over a
+mesh's ``pod`` dim, on each DTensor leaf's local shard, as the reference
+runs it inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ..sharding.partitioning import _spec_map, sanitize_spec, to_placements
 from ..tree import tree_map
 
 
@@ -66,9 +69,41 @@ def make_compressed_allreduce(group: Optional[dist.ProcessGroup] = None):
     return summed
 
 
+def make_compressed_psum(mesh, param_pspecs: Any, abstract_params: Any):
+    """Returns fn(grads, err_state) -> (summed grads, new err_state): the
+    int8 error-feedback sum over the mesh's 'pod' dim.  Each leaf is a
+    DTensor on the (sanitized) param spec, which names no 'pod': its local
+    shard is summed over the ranks of its 'pod' group, and the sum and the
+    residual come back as DTensors on the same placements."""
+    group = mesh.get_group("pod")
+    placements = _spec_map(
+        lambda s, a: to_placements(mesh, sanitize_spec(mesh, s, tuple(a.shape))),
+        param_pspecs, abstract_params)
+
+    def summed(grads: Any, err: Any) -> tuple[Any, Any]:
+        def leaf(g, e, pl):
+            local = lambda t: (t.redistribute(mesh, pl) if isinstance(t, DTensor)
+                               else t).to_local()
+            s, ne = compress_allreduce_leaf(local(g), local(e), group)
+            wrap = lambda t, like: DTensor.from_local(t, mesh, pl, run_check=False,
+                                                      shape=like.shape, stride=like.stride())
+            return wrap(s, g), wrap(ne, e)
+
+        def walk(g, e, pl):
+            if isinstance(g, dict):
+                outs = {k: walk(g[k], e[k], pl[k]) for k in g}
+                return {k: o[0] for k, o in outs.items()}, {k: o[1] for k, o in outs.items()}
+            return leaf(g, e, pl)
+
+        return walk(grads, err, placements)
+
+    return summed
+
+
 def init_error_state(params: Any) -> Any:
     """Zero f32 residuals shaped like ``params``, on their devices."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
-__all__ = ["compress_allreduce_leaf", "init_error_state", "make_compressed_allreduce"]
+__all__ = ["compress_allreduce_leaf", "init_error_state", "make_compressed_allreduce",
+           "make_compressed_psum"]

@@ -11,8 +11,11 @@ Where the reference returns new arrays (and its launcher donates the old
 ones), :func:`apply_adamw` updates parameters, moments, master and step in
 place under ``torch.no_grad()``: every leaf stays the same tensor object.
 Each update is computed in f32 with the reference's operations in the
-reference's order.  The sharding helpers (``abstract_opt_state``,
-``opt_state_pspecs``) wait for the port's sharding slice.
+reference's order.  On DTensor parameters (under a mesh) the state takes
+the parameters' placements (``opt_state_pspecs``: the moments and master
+take the param specs, ``step`` is replicated), every update runs on the
+local shards in place, and the global grad norm, a sum over sharded leaves,
+is reduced to a replicated value before it scales anything.
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from ..sharding.spec import P
 from ..tree import tree_leaves, tree_map
 
 
@@ -56,21 +61,54 @@ def init_opt_state(ocfg: OptConfig, params: Any) -> dict:
     """Zero moments in ``moment_dtype``, step 0 (int32, 0-d) and, with
     ``master_fp32``, an f32 copy of the parameters, each on its parameter's
     device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=ocfg.moment_dtype, device=p.device)
-    device = tree_leaves(params)[0].device
+    zeros = lambda p: torch.zeros_like(p, dtype=ocfg.moment_dtype)
+    first = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):
+        step = DTensor.from_local(step, first.device_mesh, [Replicate()] * first.device_mesh.ndim)
     state = {
         "mu": tree_map(zeros, params),
         "nu": tree_map(zeros, params),
-        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "step": step,
     }
     if ocfg.master_fp32:
         state["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
     return state
 
 
+def abstract_opt_state(ocfg: OptConfig, abstract_params: Any) -> dict:
+    """The state's leaves as ``meta`` tensors (shapes and dtypes, no data)."""
+    meta = lambda p, dt: torch.empty(p.shape, dtype=dt, device="meta")
+    state = {
+        "mu": tree_map(lambda p: meta(p, ocfg.moment_dtype), abstract_params),
+        "nu": tree_map(lambda p: meta(p, ocfg.moment_dtype), abstract_params),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+    if ocfg.master_fp32:
+        state["master"] = tree_map(lambda p: meta(p, torch.float32), abstract_params)
+    return state
+
+
+def opt_state_pspecs(ocfg: OptConfig, param_pspecs: Any) -> dict:
+    """Moments and master take the param specs; ``step`` is replicated."""
+    state = {"mu": param_pspecs, "nu": param_pspecs, "step": P()}
+    if ocfg.master_fp32:
+        state["master"] = param_pspecs
+    return state
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor redistributed to every rank whole (a partial sum is
+    reduced); a plain tensor as it is."""
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    return x
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, each squared in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)))
+    total = sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree))
+    return torch.sqrt(replicated(total))
 
 
 @torch.no_grad()
@@ -108,4 +146,5 @@ def apply_adamw(ocfg: OptConfig, params: Any, grads: Any, state: dict) -> tuple[
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
 
-__all__ = ["OptConfig", "apply_adamw", "global_norm", "init_opt_state", "schedule"]
+__all__ = ["OptConfig", "abstract_opt_state", "apply_adamw", "global_norm", "init_opt_state",
+           "opt_state_pspecs", "replicated", "schedule"]

@@ -112,6 +112,7 @@ VERBATIM_COPIES = (
     "streams/sources.py", "streams/parametric.py", "streams/tpcxbb.py", "core/simulate.py",
     "serve/loadgen.py", "serve/mux.py", "analysis/common.py", "analysis/guards.py",
     "analysis/lockgraph.py", "analysis/forksafety.py", "analysis/__main__.py", "train/data.py",
+    "configs/shapes.py", "launch/report.py",
 )
 
 

@@ -36,18 +36,28 @@ class Reference:
 
     With ``keep=False`` the pool is shut down after every call: for test
     files whose port runs fork workers from this process, which must not
-    copy the pool's live threads (its manager and queue feeder) into them."""
+    copy the pool's live threads (its manager and queue feeder) into them.
 
-    def __init__(self, keep: bool = True):
+    With ``host_devices=n`` the child gives jax n CPU devices
+    (``XLA_FLAGS=--xla_force_host_platform_device_count=n``, set before it
+    imports jax), for the reference's sharded runs on a mesh."""
+
+    def __init__(self, keep: bool = True, host_devices: int = 0):
         self._pool = None
         self._keep = keep
+        self._host_devices = host_devices
 
-    def __call__(self, name: str, *args, **kwargs):
+    def submit(self, name: str, *args, **kwargs):
+        """Start ``name(*args, **kwargs)`` in the child; returns its future."""
         if self._pool is None:
             self._pool = ProcessPoolExecutor(
-                max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+                max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_child_init, initargs=(self._host_devices,))
+        return self._pool.submit(_run, name, args, kwargs)
+
+    def __call__(self, name: str, *args, **kwargs):
         try:
-            return self._pool.submit(_run, name, args, kwargs).result()
+            return self.submit(name, *args, **kwargs).result()
         finally:
             if not self._keep:
                 self.close()
@@ -65,6 +75,13 @@ class Reference:
             yield self
             self.close()
         return _reference_child
+
+
+def _child_init(host_devices):
+    if host_devices:
+        import os
+
+        os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={host_devices}"
 
 
 def _run(name, args, kwargs):
@@ -860,3 +877,154 @@ def quantize(x):
     from repro.train.grad_compression import _quantize
 
     return _np(_quantize(jnp.asarray(x)))
+
+
+# ------------------------------------------------------------------ sharding
+def _spec(spec):
+    """A ``PartitionSpec`` as a tuple: per dim None, a name or a tuple of names."""
+    return tuple(tuple(a) if isinstance(a, (tuple, list)) else a for a in spec)
+
+
+def _specs(tree):
+    from jax.sharding import PartitionSpec as P
+
+    if isinstance(tree, P):
+        return _spec(tree)
+    return {k: _specs(v) for k, v in tree.items()}
+
+
+def _shapes(tree):
+    """A tree of ``ShapeDtypeStruct``s as (shape, dtype name) pairs."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape), np.dtype(tree.dtype).name
+
+
+def spec_trees(arch, mesh_shape, mesh_names, batches, seq_len):
+    """The reference's spec trees of the full config of ``arch`` on an
+    ``AbstractMesh`` (no devices), as tuples: param and period specs with
+    ``fsdp_params`` True and False, cache specs in both modes with and
+    without ``kv_quant`` at each of ``batches``, ``batch_spec`` at each of
+    ``batches``, and ``sanitize_spec`` of every param leaf."""
+    from jax.sharding import AbstractMesh
+
+    from repro.models import common
+    from repro.sharding import partitioning as part
+
+    mesh = AbstractMesh(tuple(mesh_shape), tuple(mesh_names))
+    out = {}
+    for fsdp in (True, False):
+        cfg = _config(arch, False, fsdp_params=fsdp)
+        out[f"param_pspecs/{fsdp}"] = _specs(common.param_pspecs(cfg))
+        out[f"period_pspecs/{fsdp}"] = _specs(common.period_pspecs(cfg))
+        out[f"sanitized/{fsdp}"] = {
+            n: _spec(part.sanitize_spec(mesh, s, a.shape))
+            for (n, s), (_, a) in zip(_leaves_p(common.param_pspecs(cfg)),
+                                      _leaves(common.abstract_params(cfg)))}
+    for kvq in (False, True):
+        cfg = _config(arch, False, kv_quant=kvq)
+        for mode in ("decode", "prefill"):
+            for b in batches:
+                out[f"cache/{kvq}/{mode}/{b}"] = _specs(part.cache_pspecs(cfg, mesh, b, mode))
+    for b in batches:
+        for extra in (0, 1, 2):
+            out[f"batch/{b}/{extra}"] = _spec(part.batch_spec(mesh, b, extra))
+    return out
+
+
+def _leaves_p(tree, prefix=""):
+    """(name, spec) pairs of a spec tree, in leaf order."""
+    from jax.sharding import PartitionSpec as P
+
+    for k, v in sorted(tree.items()):
+        if isinstance(v, P):
+            yield f"{prefix}{k}", v
+        else:
+            yield from _leaves_p(v, f"{prefix}{k}.")
+
+
+def abstract_trees(arch, batch, seq_len, ocfg):
+    """The reference's abstract trees of the full config of ``arch`` as
+    (shape, dtype name) pairs: params, period params, the cache and its
+    slice, the optimizer state and the train, prefill and serve inputs."""
+    from repro.configs.shapes import ShapeSpec
+    from repro.models import common, transformer as tf
+    from repro.train import optimizer, train_step as ts
+
+    cfg = _config(arch, False)
+    oc = _ocfg(ocfg)
+    shape = ShapeSpec("t", seq_len, batch, "train")
+    ap = common.abstract_params(cfg)
+    return _shapes({
+        "params": ap, "period": common.abstract_period_params(cfg),
+        "cache": tf.abstract_cache(cfg, batch, seq_len),
+        "cache_slice": tf.abstract_cache_slice(cfg, batch, seq_len),
+        "opt": optimizer.abstract_opt_state(oc, ap),
+        "train_batch": ts.abstract_train_batch(cfg, shape),
+        "prefill_batch": ts.abstract_prefill_batch(cfg, shape),
+        "serve": dict(zip(("cache", "token", "position"), ts.abstract_serve_inputs(cfg, shape))),
+    })
+
+
+def _mesh(shape, names):
+    """A mesh of the first prod(shape) host devices with Auto axes
+    (``jax.sharding.Mesh``; ``jax.make_mesh`` defaults to Explicit axes, on
+    which the reference's sharding constraints raise)."""
+    import jax
+    from jax.sharding import Mesh
+
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(tuple(shape)), tuple(names))
+
+
+def sharded_losses(dtype, arch, mesh_shape, mesh_names, toks):
+    """``loss_fn`` of smoke ``arch`` (PRNGKey(0) params, ``dtype``) on
+    tokens ``toks`` as labels too, jitted on the mesh with the params
+    placed by ``param_pspecs`` and the batch by ``batch_spec`` (the
+    reference's own recipe, ``tests/test_distribution.py``), and on one
+    device: (sharded loss, single-device loss)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    from repro.models.common import abstract_params, param_pspecs
+    from repro.models.transformer import loss_fn
+    from repro.sharding.context import use_mesh
+    from repro.sharding.partitioning import batch_spec, named_sanitized
+
+    cfg, params = _model(dtype, 0, arch)
+    t = jnp.asarray(toks)
+    batch = {"tokens": t, "labels": t}
+    mesh = _mesh(mesh_shape, mesh_names)
+    with mesh, use_mesh(mesh):
+        sp = jax.device_put(params, named_sanitized(mesh, param_pspecs(cfg), abstract_params(cfg)))
+        sb = jax.device_put(batch, NamedSharding(mesh, batch_spec(mesh, t.shape[0], 1)))
+        sharded, _ = jax.jit(lambda p, b: loss_fn(cfg, p, b))(sp, sb)
+    single, _ = loss_fn(cfg, params, batch)
+    return float(sharded), float(single)
+
+
+def sharded_train_step(dtype, arch, ocfg, mesh_shape, mesh_names, batch):
+    """One step of the reference's ``make_train_step`` of smoke ``arch``
+    from its PRNGKey(0) params and ``init_opt_state``, jitted on the mesh
+    with ``train_step_shardings``: (metrics, params after the step)."""
+    import dataclasses as dc
+
+    import jax
+
+    from repro.configs.shapes import SHAPES
+    from repro.sharding.context import use_mesh
+    from repro.train.optimizer import init_opt_state
+    from repro.train import train_step as ts
+
+    cfg, params = _model(dtype, 0, arch)
+    oc = _ocfg(ocfg)
+    state = init_opt_state(oc, params)
+    B, S = np.asarray(batch["tokens"]).shape
+    shape = dc.replace(SHAPES["train_4k"], seq_len=S, global_batch=B)
+    mesh = _mesh(mesh_shape, mesh_names)
+    with mesh, use_mesh(mesh):
+        ins, outs = ts.train_step_shardings(cfg, oc, mesh, shape)
+        step = jax.jit(ts.make_train_step(cfg, oc), in_shardings=ins, out_shardings=outs)
+        params, state, metrics = step(params, state, _tree(batch))
+    return _np(metrics), _np(params)
