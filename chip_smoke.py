@@ -214,18 +214,23 @@ Phase 17 drives the port's distribution layer (``repro_torch.sharding``)
 on a one-rank NCCL group and a (1,1) ("data", "model") ``DeviceMesh`` on
 the card (a multi-rank mesh needs more than one card), and its dry-run:
 
-17. Mesh.  (a) olmo-1b as in phase 16 (a), 3 steps with its params,
+17. Mesh.  (a) olmo-1b as in phase 16 (a), 12 steps with its params,
     optimizer state and batches placed by ``train_step_shardings`` under
-    ``use_mesh``, against the same 3 steps without a mesh: losses within
+    ``use_mesh``, against the same 12 steps without a mesh: losses within
     1e-5 and grad norms within 1e-3 relative (phase 16 (b)'s limits;
     bit-equality is printed), K4 launched 2 x 16 times a step inside
-    ``local_map``, and the median step with and without the mesh.  (b)
+    ``local_map``, and the median step and its min-max over steps 2-12
+    with and without the mesh.  (b)
     qwen2-moe-a2.7b with 2 of 24 layers and mamba2-780m with 4 of 48 at
     their published widths: B 2, a 333-token prefill and 16 greedy decode
     steps through ``make_prefill_step`` / ``make_serve_step`` with params and
     caches placed by ``prefill_shardings`` / ``serve_shardings``; tokens
     equal to the run without a mesh, K3 (1 + 16) x 2, K4 2 and K5 4 x 3
-    launches.  (c) In subprocesses on the CPU (``fake`` process group):
+    launches; each kernel's first call in the mesh run (K3 on a 666-token
+    row, K4 at B 2 x S 333 x H 16, K5 at B 2 x L 512 x H 48: shapes of no
+    parity sweep) held on its captured inputs to ``dispatch_ref`` bit for
+    bit, ``attention_ref`` at the flash tolerance and ``ssd_chunked`` at
+    2e-4.  (c) In subprocesses on the CPU (``fake`` process group):
     ``python -m repro_torch.launch.dryrun --arch olmo-1b --mesh single``,
     ``python -m repro_torch.launch.roofline --arch olmo-1b`` and the
     one-card dry-run of (a)'s cell; each record's compute, memory and
@@ -1928,7 +1933,7 @@ def phase_train() -> dict:
 
 
 # Phase 17: the port's distribution layer on a one-rank mesh, and the dry-run
-MESH_TRAIN_STEPS = 3
+MESH_TRAIN_STEPS = TRAIN_STEPS  # phase 16's 12, so the step times have a spread
 MESH_B, MESH_PROMPT, MESH_STEPS = 2, 333, 16
 MESH_CUTS = {MOE_ARCH: 2, SSM_ARCH: 4}  # layers of the served cuts (of 24 and 48)
 PHASE17_TIMEOUT_S = 300
@@ -2004,16 +2009,20 @@ def _mesh_train(card, mesh) -> tuple[int, float]:
             abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]) for a, b in zip(meshed, plain)]
     bitwise = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
                   for a, b in zip(meshed, plain))
-    ms = {k: statistics.median(r["ms"] for r in runs[k][0][1:]) for k in runs}
+    # steps 2 on: the median, and the spread as min-max over those steps
+    times = {k: [r["ms"] for r in runs[k][0][1:]] for k in runs}
+    ms = {k: statistics.median(t) for k, t in times.items()}
+    spread = {k: f"{min(t):.3f}-{max(t):.3f}" for k, t in times.items()}
     log(f"[mesh train] {cfg.name} (published config, remat {cfg.remat}), B {TRAIN_B} x S "
         f"{TRAIN_S}, {MESH_TRAIN_STEPS} steps placed by train_step_shardings on a (1,1) "
         f"('data', 'model') mesh of one NCCL rank, against the same steps without a mesh: max "
         f"rel loss {max(r[0] for r in rel):.3e} (limit {TRAIN_LOSS_REL}), max rel grad norm "
         f"{max(r[1] for r in rel):.3e} (limit {TRAIN_GNORM_REL}); losses and grad norms "
         f"{'equal bit for bit' if bitwise else 'not bit-equal'}; K4 launched {k4} times under "
-        f"the mesh; median step over steps 2-{MESH_TRAIN_STEPS}: {ms['mesh']:.3f} ms with the "
-        f"mesh, {ms['no mesh']:.3f} ms without (DTensor's host cost "
-        f"{ms['mesh'] - ms['no mesh']:.3f} ms a step) [{card}]")
+        f"the mesh; step over steps 2-{MESH_TRAIN_STEPS}: median {ms['mesh']:.3f} ms (min-max "
+        f"{spread['mesh']}) with the mesh, median {ms['no mesh']:.3f} ms (min-max "
+        f"{spread['no mesh']}) without (DTensor's host cost {ms['mesh'] - ms['no mesh']:.3f} ms "
+        f"a step, on the medians) [{card}]")
     if max(r[0] for r in rel) > TRAIN_LOSS_REL or max(r[1] for r in rel) > TRAIN_GNORM_REL:
         raise RuntimeError("mesh train: the steps under the mesh disagree with the steps without")
     return k4, ms["no mesh"]
@@ -2073,6 +2082,44 @@ def _mesh_greedy(cfg, params, prompt, mesh=None) -> torch.Tensor:
     return torch.stack(full, dim=1)
 
 
+def _mesh_kernels_held(tag, cfg, seen) -> None:
+    """Each kernel's first call in the mesh run, on the local pieces
+    ``local_apply`` handed it (these shapes are in no parity sweep): K3 held
+    to ``dispatch_ref`` bit for bit, K4 to ``attention_ref`` at
+    ``parity.FLASH_TOL``, K5 to ``ssd_chunked`` at ``parity.SSD_TOL``."""
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.dispatch import dispatch as k3
+    from repro_torch.kernels.dispatch.ref import dispatch_ref
+    from repro_torch.kernels.ssd import ssd as k5
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+
+    if seen["K3"]:
+        (ids, h, P, C), kw = seen["K3"][0]
+        got, want = k3.dispatch_fwd(ids, h, P, C, kw["group"]), dispatch_ref(ids, h, P, C,
+                                                                             group=kw["group"])
+        same = all(parity.bits_equal(a, b) for a, b in zip(got, want))
+        log(f"[{tag}] {cfg.name}: K3 as the mesh run first called it (T={ids.numel()} P={P} "
+            f"C={C} W={h.shape[1]} {str(h.dtype)[6:]} group {kw['group']}) against dispatch_ref: "
+            f"{'equal bit for bit' if same else 'DIFFERS'} (tolerance 0)")
+        if not same:
+            raise RuntimeError(f"{tag}: K3 disagrees with dispatch_ref at {cfg.name}'s shape")
+    if seen["K4"]:
+        (q, k, v), kw = seen["K4"][0]
+        _k4_held(tag, f"{cfg.name}'s first attention layer as the mesh run called K4", q, k, v,
+                 kw.get("causal", True), iters=20)
+    if seen["K5"]:
+        (x, dt, A, Bm, Cm), kw = seen["K5"][0]
+        chunk = kw.get("chunk", cfg.ssm_chunk)
+        ok, err = parity.ssd_close(k5.ssd_fwd(x, dt, A, Bm, Cm, chunk),
+                                   ssd_chunked(x, dt, A, Bm, Cm, chunk), parity.SSD_TOL)
+        log(f"[{tag}] {cfg.name}: K5 as the mesh run first called it (B,L,H,P,N="
+            f"{tuple(x.shape)}+({Bm.shape[-1]},) chunk {chunk} f32) against ssd_chunked: "
+            f"max|err| {err:.3g} (tol {parity.SSD_TOL} + {parity.SSD_TOL} x |ref|) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{tag}: K5 disagrees with ssd_chunked at {cfg.name}'s shape")
+
+
 def _mesh_serve(card, mesh) -> dict:
     """Phase 17 (b): returns each kernel's launches under the mesh."""
     from repro_torch.configs import get_config
@@ -2080,6 +2127,7 @@ def _mesh_serve(card, mesh) -> dict:
     from repro_torch.kernels.dispatch.ops import dispatch
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.kernels.ssd.ssd import LAUNCHES_PER_CALL as K5_PER_CALL
+    from repro_torch.models import attention, ffn, ssm
     from repro_torch.models.common import init_params
 
     launches = {"K3": 0, "K4": 0, "K5": 0}
@@ -2094,8 +2142,11 @@ def _mesh_serve(card, mesh) -> dict:
         want = _mesh_greedy(cfg, params, prompt)
         dispatch.LAUNCHES = flash_attention.LAUNCHES = ssd.LAUNCHES = 0
         t0 = time.perf_counter()
-        got = _mesh_greedy(cfg, params, prompt, mesh)
-        torch.cuda.synchronize()
+        with _first_call(ffn, "dispatch") as k3_seen, \
+                _first_call(attention, "flash_attention") as k4_seen, \
+                _first_call(ssm, "ssd") as k5_seen:
+            got = _mesh_greedy(cfg, params, prompt, mesh)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"K3": dispatch.LAUNCHES, "K4": flash_attention.LAUNCHES, "K5": ssd.LAUNCHES}
         n_moe = sum(f == "moe" for _, f in cfg.pattern) * cfg.num_periods
@@ -2116,6 +2167,8 @@ def _mesh_serve(card, mesh) -> dict:
         if not same:
             raise RuntimeError(f"mesh serve: {cfg.name}'s tokens under the mesh differ: "
                                f"{got.tolist()} vs {want.tolist()}")
+        _mesh_kernels_held("mesh serve", cfg, {"K3": k3_seen, "K4": k4_seen, "K5": k5_seen})
+        del k3_seen, k4_seen, k5_seen
         for k in launches:
             launches[k] += counts[k]
         del params, prompt

@@ -4,8 +4,10 @@ Measures named config VARIANTS of the three chosen cells on the dry-run's
 counts (``roofline.corrected_record`` with the variant's config passed in,
 where the reference swaps it into the config registry) and logs
 hypothesis -> change -> before/after on the dominant roofline term.
-``attn_bf16_scores`` changes nothing in the port: its causal attention is
-K4's (or ``attention_ref``'s) f32 softmax, which has no bf16 score buffer.
+The reference's ``bf16_scores`` and ``seq_parallel+bf16`` variants are left
+out: ``attn_bf16_scores`` changes nothing in the port, whose causal
+attention is K4's (or ``attention_ref``'s) f32 softmax with no bf16 score
+buffer, so they would measure the baseline and ``seq_parallel`` again.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell musicgen_prefill
 """
@@ -31,9 +33,7 @@ CELLS = {
         "shape": "prefill_32k",
         "variants": [
             ("baseline", lambda cfg: cfg),
-            _v("bf16_scores", attn_bf16_scores=True),
             _v("seq_parallel", seq_parallel=True),
-            _v("seq_parallel+bf16", seq_parallel=True, attn_bf16_scores=True),
         ],
     },
     "jamba_decode": {

@@ -74,9 +74,7 @@ def _heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     """(B, S, n*dh) -> (B, S, n, dh).  Under a mesh the projection is first
     laid out batch over DP and heads over 'model' where n splits over it,
     else replicated there: DTensor cannot cut a dim unevenly as JAX pads."""
-    mesh = get_mesh()
-    if mesh is not None and isinstance(t, DTensor):
-        t = shard(t, "dp", None, "tp" if logical_spec(mesh, (n,), ("tp",))[0] else None)
+    t = shard(t, "dp", None, "tp" if logical_spec(get_mesh(), (n,), ("tp",))[0] else None)
     return t.reshape(t.shape[0], t.shape[1], n, dh)
 
 
@@ -121,8 +119,6 @@ def _local_heads(fn, q, k, v):
     not split over 'model' but the query heads do, k and v are expanded to
     the query heads first (as the JAX package expands them)."""
     mesh = get_mesh()
-    if mesh is None or not isinstance(q, DTensor):
-        return fn(q, k, v)
     dims = ("dp", None, "tp", None)
     sq = logical_spec(mesh, q.shape, dims)
     if sq[2] is not None and logical_spec(mesh, k.shape, dims)[2] is None:

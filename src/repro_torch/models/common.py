@@ -304,9 +304,14 @@ def param_shapes(cfg: ModelConfig) -> dict:
     )
 
 
+def meta(shape, dtype) -> torch.Tensor:
+    """A tensor of this shape and dtype on the ``meta`` device (no data):
+    the counterpart of the JAX package's ``ShapeDtypeStruct``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def _abstract(cfg: ModelConfig, defs: dict) -> dict:
-    return unflatten({k: torch.empty(d.shape, dtype=d.dtype or cfg.param_dtype, device="meta")
-                      for k, d in defs.items()})
+    return unflatten({k: meta(d.shape, d.dtype or cfg.param_dtype) for k, d in defs.items()})
 
 
 def abstract_params(cfg: ModelConfig) -> dict:

@@ -14,10 +14,10 @@ marks a dropped assignment -1 where the reference uses ``E*C``, and the
 combine sums each token's k expert outputs in a fixed order where the
 reference scatter-adds them.)
 
-Under a mesh (:func:`_moe_rows`) the tokens are split into R rows, R = the
-DP shard count (pod x data) where it divides the tokens, as in the JAX
-package: each row routes its Tl = T/R tokens with its own capacity, so
-which assignments are dropped depends on the mesh.  The dispatch and the
+Under a mesh the tokens are split into R rows, R = the DP shard count
+(pod x data) where it divides the tokens, as in the JAX package (R = 1
+without a mesh): each row routes its Tl = T/R tokens with its own capacity,
+so which assignments are dropped depends on the mesh.  The dispatch and the
 combine run per row inside ``local_map`` (``local_apply``) over the DP dims
 (the reference's ``shard_map``): each DP rank holds one row and calls the
 same one-row K3 on it.  ``moe_ep`` keeps one row and shards the expert buffers over DP.
@@ -28,7 +28,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
 from ..kernels.dispatch.ops import dispatch
 from ..sharding.context import get_mesh, local_apply, shard
@@ -81,9 +80,11 @@ def _combine(out_flat, dest, top_v, k: int):
     return pa.reshape(-1, k, out_flat.shape[-1]).sum(dim=1)
 
 
-def _moe_rows(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              mesh) -> tuple[torch.Tensor, torch.Tensor]:
-    """``moe`` under a mesh, on DTensors: the JAX package's row layout."""
+def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (residual output, load-balancing aux loss).  The tokens are
+    cut into R rows (R = 1 without a mesh or with ``moe_ep``), each routed
+    with its own capacity: the JAX package's row layout."""
+    mesh = get_mesh()
     B, S, D = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.top_k
@@ -97,9 +98,9 @@ def _moe_rows(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # the router whole on every rank (its d_model dim is FSDP-cut over 'data',
     # which the rows hold): gates and their gradient keep the rows' layout
     router = shard(p["w_router"], None, None)
-    gates = torch.softmax(torch.einsum("rtd,de->rte", h.float(), router), dim=-1)
+    gates = torch.softmax(h.float() @ router, dim=-1)  # (R, Tl, E), router in f32
     gates = shard(gates, "dp", None, None)  # and their gradient, whatever reaches it
-    top_v, top_i = torch.topk(gates, k, dim=-1)  # (R, Tl, k)
+    top_v, top_i = torch.topk(gates, k, dim=-1)  # (R, Tl, k), largest first
     top_v = top_v / top_v.sum(-1, keepdim=True).clamp(min=1e-9)
     ids = top_i.reshape(R, Tl * k).to(torch.int32)
     capacity = moe_capacity(cfg, Tl)
@@ -109,6 +110,8 @@ def _moe_rows(cfg: ModelConfig, p: dict, x: torch.Tensor,
     rows = lambda nd: P(dp_axes(mesh) if R > 1 else None, *([None] * (nd - 1)))
 
     def _dispatch(ids_r, h_r):
+        # (E, C, D) a row: K3 on the card, which reads assignment t's row
+        # h[t // k] itself (group=k), so no gathered copy of h is made
         outs = [dispatch(i.contiguous(), hr.contiguous(), E, capacity, group=k)
                 for i, hr in zip(ids_r, h_r)]
         return (torch.stack([o[0] for o in outs]), torch.stack([o[2] for o in outs]),
@@ -148,41 +151,6 @@ def _moe_rows(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     if cfg.num_shared_experts:
         y = y + (F.silu(h_all @ p["ws_gate"]) * (h_all @ p["ws_up"])) @ p["ws_down"]
-    return x + y.reshape(B, S, D).to(x.dtype), aux
-
-
-def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (residual output, load-balancing aux loss)."""
-    mesh = get_mesh()
-    if mesh is not None and isinstance(x, DTensor):
-        return _moe_rows(cfg, p, x, mesh)
-    B, S, D = x.shape
-    T = B * S
-    E, k = cfg.num_experts, cfg.top_k
-    h = apply_norm(cfg, x, p, "ffn_norm").reshape(T, D)
-
-    gates = torch.softmax(h.float() @ p["w_router"], dim=-1)  # (T, E), router in f32
-    top_v, top_i = torch.topk(gates, k, dim=-1)  # (T, k), largest first
-    top_v = top_v / top_v.sum(-1, keepdim=True).clamp(min=1e-9)
-
-    # aux load-balance loss (Switch-style): E * sum_e f_e * P_e
-    ids = top_i.reshape(T * k).to(torch.int32)
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, ids, torch.ones(T * k, dtype=torch.float32, device=x.device)) / (T * k)
-    aux = E * torch.sum(gates.mean(0) * ce)
-
-    capacity = moe_capacity(cfg, T)
-    # (E, C, D): K3 on the card, which reads assignment t's row h[t // k]
-    # itself (group=k), so no gathered copy of h is made
-    buf, _, dest = dispatch(ids, h, E, capacity, group=k)
-    up = torch.bmm(buf, p["we_up"])
-    gate = torch.bmm(buf, p["we_gate"])
-    out_flat = torch.bmm(F.silu(gate) * up, p["we_down"]).reshape(E * capacity, D)
-
-    y = _combine(out_flat, dest, top_v, k)
-
-    if cfg.num_shared_experts:
-        y = y + (F.silu(h @ p["ws_gate"]) * (h @ p["ws_up"])) @ p["ws_down"]
     return x + y.reshape(B, S, D).to(x.dtype), aux
 
 

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_chunked, ssd_decode_step
@@ -47,12 +46,8 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     over the input left-padded with K-1 zeros.  Under a mesh it runs inside
     ``local_apply`` (DTensor's convolution rule does not split the groups of
     a depthwise convolution): batch over the DP dims, channels over 'model'."""
-    mesh = get_mesh()
-    if mesh is not None and isinstance(xBC, DTensor):
-        b_, c = logical_spec(mesh, (xBC.shape[0], xBC.shape[2]), ("dp", "tp"))
-        return local_apply(_conv, (xBC, w, b), (P(b_, None, c), P(None, c), P(c)),
-                           P(b_, None, c))
-    return _conv(xBC, w, b)
+    b_, c = logical_spec(get_mesh(), (xBC.shape[0], xBC.shape[2]), ("dp", "tp"))
+    return local_apply(_conv, (xBC, w, b), (P(b_, None, c), P(None, c), P(c)), P(b_, None, c))
 
 
 def _conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,10 +64,7 @@ def _local_scan(fn, xh, dt, A, Bm, Cm):
     """``fn(xh, dt, A, Bm, Cm) -> (y, hT)``; under a mesh inside
     ``local_apply``, batch over the DP dims and heads over 'model' where
     they divide: the scan is local per batch row and head."""
-    mesh = get_mesh()
-    if mesh is None or not isinstance(xh, DTensor):
-        return fn(xh, dt, A, Bm, Cm)
-    b, h = logical_spec(mesh, (xh.shape[0], xh.shape[2]), ("dp", "tp"))
+    b, h = logical_spec(get_mesh(), (xh.shape[0], xh.shape[2]), ("dp", "tp"))
     return local_apply(fn, (xh, dt, A, Bm, Cm),
                        (P(b, None, h, None), P(b, None, h), P(h), P(b, None, None),
                         P(b, None, None)),

@@ -39,14 +39,13 @@ import functools
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import ffn as ffn_mod
 from . import ssm
-from .common import ModelConfig, apply_norm
+from .common import ModelConfig, apply_norm, meta
 from .. import default_device
 from ..sharding.context import get_mesh, local_apply, logical_spec, mesh_scope, shard
 from ..sharding.spec import P
@@ -102,8 +101,6 @@ def _scoped(fn):
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     table = params["embed"].to(cfg.dtype)
-    if get_mesh() is None or not isinstance(table, DTensor):
-        return table[tokens]
     # under a mesh the table is gathered whole (FSDP) and each rank looks up
     # its batch rows: the stream starts batch-sharded over the DP dims
     b = logical_spec(get_mesh(), tokens.shape[:1], ("dp",))[0]
@@ -337,18 +334,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Cache
                      lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev))
 
 
-def _meta(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device="meta")
-
-
 def abstract_cache_slice(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
     """``meta`` tensors for ONE period's cache slice (no data)."""
-    return _cache_of(_cache_slice_leaves(cfg, batch, max_len), (), _meta)
+    return _cache_of(_cache_slice_leaves(cfg, batch, max_len), (), meta)
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
     """``meta`` tensors for the full cache (leading num_periods dim)."""
-    return _cache_of(_cache_slice_leaves(cfg, batch, max_len), (cfg.num_periods,), _meta)
+    return _cache_of(_cache_slice_leaves(cfg, batch, max_len), (cfg.num_periods,), meta)
 
 
 # ------------------------------------------------------------------ greedy gen

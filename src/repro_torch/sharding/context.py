@@ -58,7 +58,10 @@ def mesh_scope():
 
 
 def logical_spec(mesh, shape: tuple, dims) -> P:
-    """``dims`` ("dp" | "tp" | None per tensor dim) resolved on ``mesh``."""
+    """``dims`` ("dp" | "tp" | None per tensor dim) resolved on ``mesh``;
+    every dim replicated when ``mesh`` is None."""
+    if mesh is None:
+        return P(*([None] * len(dims)))
     spec = []
     for size, d in zip(shape, dims):
         if d == "dp":
@@ -91,8 +94,11 @@ def local_apply(fn, args: tuple, specs: tuple, out_specs):
     current mesh, ``out_specs`` the outputs' (one spec, or a tuple of them).
     The inputs are redistributed to their specs first.  Gradients follow:
     an input whole on a mesh dim that cuts an output gets a partial sum
-    there (each rank's gradient covers its own piece of the work)."""
+    there (each rank's gradient covers its own piece of the work).  With
+    no mesh set, or no DTensor among ``args``, it is ``fn(*args)``."""
     mesh = _CURRENT[0]
+    if mesh is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
     many = isinstance(out_specs, tuple) and not isinstance(out_specs, P)
     outs = [to_placements(mesh, s) for s in (out_specs if many else (out_specs,))]
     ins = [to_placements(mesh, s) for s in specs]

@@ -26,6 +26,7 @@ from typing import Any
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 
+from ..models.common import meta
 from ..sharding.spec import P
 from ..tree import tree_leaves, tree_map
 
@@ -78,14 +79,13 @@ def init_opt_state(ocfg: OptConfig, params: Any) -> dict:
 
 def abstract_opt_state(ocfg: OptConfig, abstract_params: Any) -> dict:
     """The state's leaves as ``meta`` tensors (shapes and dtypes, no data)."""
-    meta = lambda p, dt: torch.empty(p.shape, dtype=dt, device="meta")
     state = {
-        "mu": tree_map(lambda p: meta(p, ocfg.moment_dtype), abstract_params),
-        "nu": tree_map(lambda p: meta(p, ocfg.moment_dtype), abstract_params),
-        "step": torch.empty((), dtype=torch.int32, device="meta"),
+        "mu": tree_map(lambda p: meta(p.shape, ocfg.moment_dtype), abstract_params),
+        "nu": tree_map(lambda p: meta(p.shape, ocfg.moment_dtype), abstract_params),
+        "step": meta((), torch.int32),
     }
     if ocfg.master_fp32:
-        state["master"] = tree_map(lambda p: meta(p, torch.float32), abstract_params)
+        state["master"] = tree_map(lambda p: meta(p.shape, torch.float32), abstract_params)
     return state
 
 

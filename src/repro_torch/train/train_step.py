@@ -24,7 +24,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..models import transformer
-from ..models.common import ModelConfig, abstract_params, param_pspecs
+from ..models.common import ModelConfig, abstract_params, meta, param_pspecs
 from ..sharding.partitioning import (NamedSharding, batch_spec, cache_pspecs, named,
                                      named_sanitized, place)
 from ..sharding.context import mesh_scope, shard
@@ -45,10 +45,6 @@ def _like(grad, param):
     if isinstance(grad, DTensor) and tuple(grad.placements) != tuple(param.placements):
         return grad.redistribute(param.device_mesh, param.placements)
     return grad
-
-
-def _meta(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _device_batch(batch: dict, like: torch.Tensor) -> dict:
@@ -106,9 +102,9 @@ def train_step_shardings(cfg: ModelConfig, ocfg: OptConfig, mesh, shape):
 
 def abstract_train_batch(cfg: ModelConfig, shape) -> dict:
     B, S = shape.global_batch, shape.seq_len
-    batch = {"tokens": _meta((B, S), torch.int32), "labels": _meta((B, S), torch.int32)}
+    batch = {"tokens": meta((B, S), torch.int32), "labels": meta((B, S), torch.int32)}
     if cfg.num_encoder_tokens:
-        batch["encoder_states"] = _meta((B, cfg.num_encoder_tokens, cfg.d_model), cfg.dtype)
+        batch["encoder_states"] = meta((B, cfg.num_encoder_tokens, cfg.d_model), cfg.dtype)
     return batch
 
 
@@ -138,9 +134,9 @@ def prefill_shardings(cfg: ModelConfig, mesh, shape):
 
 def abstract_prefill_batch(cfg: ModelConfig, shape) -> dict:
     B, S = shape.global_batch, shape.seq_len
-    batch = {"tokens": _meta((B, S), torch.int32)}
+    batch = {"tokens": meta((B, S), torch.int32)}
     if cfg.num_encoder_tokens:
-        batch["encoder_states"] = _meta((B, cfg.num_encoder_tokens, cfg.d_model), cfg.dtype)
+        batch["encoder_states"] = meta((B, cfg.num_encoder_tokens, cfg.d_model), cfg.dtype)
     return batch
 
 
@@ -171,8 +167,8 @@ def serve_shardings(cfg: ModelConfig, mesh, shape):
 
 def abstract_serve_inputs(cfg: ModelConfig, shape):
     B, S = shape.global_batch, shape.seq_len
-    return (transformer.abstract_cache(cfg, B, S), _meta((B,), torch.int32),
-            _meta((B,), torch.int32))
+    return (transformer.abstract_cache(cfg, B, S), meta((B,), torch.int32),
+            meta((B,), torch.int32))
 
 
 __all__ = [

@@ -32,6 +32,7 @@ _jax_child = JAX.fixture()
 
 MESH = ((2, 2), ("data", "model"))
 ARCHS = ("olmo-1b", "qwen2-moe-a2.7b")
+STEP_ARCHS = ("olmo-1b", "qwen2-moe-a2.7b", "mamba2-780m")  # one train step each
 LOSS_RTOL = 1e-5  # f32 losses: the same function, sum order apart
 GNORM_RTOL = 1e-4  # f32 grad norm over every leaf
 PARAM_ATOL = 1e-6  # f32 params after one step (lr 3e-6 at step 1)
@@ -104,34 +105,33 @@ def _four_ranks(rank, world, port, inputs, out_path, ckpt_dir):
                 out["loss/olmo-1b/seq_parallel"] = float(_full(sp_loss))
         out[f"loss/{arch}"] = float(_full(loss))
 
-    # one train step of olmo-1b under train_step_shardings
-    cfg = _cfg(inputs["fields"]["olmo-1b"])
+    # one train step of each STEP_ARCHS under train_step_shardings: olmo's
+    # dense path, qwen2-moe's row-wise MoE (per-row dispatch and combine,
+    # the router's gradient), mamba2's conv and scan run per shard (their
+    # weights' gradients are sums over the batch's ranks)
     ocfg = OptConfig()
     batch = {"tokens": toks, "labels": torch.from_numpy(np.roll(inputs["tokens"], -1, 1))}
     shape = ShapeSpec("t", toks.shape[1], toks.shape[0], "train")
-    ins, _ = ts.train_step_shardings(cfg, ocfg, mesh, shape)
-    params = params_from_numpy(inputs["params"]["olmo-1b"], device="cpu")
-    sp = distribute(params, ins[0])
-    so = distribute(init_opt_state(ocfg, params), ins[1])
-    with use_mesh(mesh):
-        sp, so, metrics = ts.make_train_step(cfg, ocfg)(sp, so, distribute(batch, ins[2]))
-    out["metrics"] = {k: float(_full(v)) for k, v in metrics.items()}
-    out["params"] = {k: _full(v).numpy() for k, v in flatten(sp).items()}
-
-    # mamba2: one step under the mesh against the same step on one device
-    # (its conv and scan run per shard; their weights' gradients are sums
-    # over the batch's ranks)
-    mcfg = _cfg(inputs["fields"]["mamba2-780m"])
-    mparams = params_from_numpy(inputs["params"]["mamba2-780m"], device="cpu")
-    mins, _ = ts.train_step_shardings(mcfg, ocfg, mesh, shape)
-    msp, mso = distribute(mparams, mins[0]), distribute(init_opt_state(ocfg, mparams), mins[1])
-    with use_mesh(mesh):
-        _, _, mm = ts.make_train_step(mcfg, ocfg)(msp, mso, distribute(batch, mins[2]))
-    _, _, m1 = ts.make_train_step(mcfg, ocfg)(mparams, init_opt_state(ocfg, mparams), batch)
-    out["mamba"] = {k: (float(_full(mm[k])), float(m1[k])) for k in ("loss", "grad_norm")}
+    out["step"] = {}
+    for arch in STEP_ARCHS:
+        cfg = _cfg(inputs["fields"][arch])
+        ins, _ = ts.train_step_shardings(cfg, ocfg, mesh, shape)
+        params = params_from_numpy(inputs["params"][arch], device="cpu")
+        sp = distribute(params, ins[0])
+        so = distribute(init_opt_state(ocfg, params), ins[1])
+        with use_mesh(mesh):
+            sp, so, metrics = ts.make_train_step(cfg, ocfg)(sp, so, distribute(batch, ins[2]))
+        out["step"][arch] = ({k: float(_full(v)) for k, v in metrics.items()},
+                             {k: _full(v).numpy() for k, v in flatten(sp).items()})
+        if arch == "mamba2-780m":  # and the same step on one device
+            _, _, m1 = ts.make_train_step(cfg, ocfg)(params, init_opt_state(ocfg, params), batch)
+            out["mamba"] = {k: (out["step"][arch][0][k], float(m1[k]))
+                            for k in ("loss", "grad_norm")}
+        if arch == "olmo-1b":  # the state the checkpoint below saves
+            ckpt_state, ckpt_ins = {"params": sp, "opt": so}, ins
 
     # checkpoint: the sharded state saved whole, restored onto the mesh
-    state = {"params": sp, "opt": so}
+    state, ins = ckpt_state, ckpt_ins
     mgr = CheckpointManager(os.path.join(ckpt_dir, "sharded"))
     mgr.save(1, state, extra={"data_serial": 7})
     whole = _full_tree(state)  # every rank gathers; rank 0 writes it as plain tensors
@@ -219,17 +219,19 @@ def runs(tmp_path_factory):
     toks = _tokens()
     batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
     ref = {arch: JAX.submit("sharded_losses", "float32", arch, *MESH, toks) for arch in ARCHS}
-    ref_step = JAX.submit("sharded_train_step", "float32", "olmo-1b", {}, *MESH, batch)
+    ref_step = {a: JAX.submit("sharded_train_step", "float32", a, {}, *MESH, batch)
+                for a in STEP_ARCHS}
     inputs = {
         "tokens": toks,
         "fields": {a: JAX("config_fields", a, True, dtype="float32", param_dtype="float32")
-                   for a in ARCHS + ("mamba2-780m",)},
-        "params": {a: JAX("model_params", "float32", 0, a) for a in ARCHS + ("mamba2-780m",)},
+                   for a in STEP_ARCHS},
+        "params": {a: JAX("model_params", "float32", 0, a) for a in STEP_ARCHS},
     }
     tmp = tmp_path_factory.mktemp("ranks")
     port = _spawn(_four_ranks, 4, inputs, str(tmp))
     return {"port": port, "tmp": tmp,
-            "ref": {a: f.result() for a, f in ref.items()}, "ref_step": ref_step.result()}
+            "ref": {a: f.result() for a, f in ref.items()},
+            "ref_step": {a: f.result() for a, f in ref_step.items()}}
 
 
 def _rel(a, b):
@@ -261,19 +263,33 @@ def test_sharded_moe_loss_follows_the_rows_of_the_mesh(runs):
     assert _rel(got, sharded) < LOSS_RTOL, (got, sharded)
 
 
-def test_sharded_train_step_matches_the_reference(runs):
-    want_metrics, want_params = runs["ref_step"]
-    got = runs["port"]["metrics"]
-    assert _rel(got["loss"], float(want_metrics["loss"])) < LOSS_RTOL
-    assert _rel(got["grad_norm"], float(want_metrics["grad_norm"])) < GNORM_RTOL
-    assert _rel(got["lr"], float(want_metrics["lr"])) < 1e-6
+def _step_matches(runs, arch):
+    """The port's sharded step of ``arch`` against the reference's on the
+    same mesh shape: loss, grad norm, lr and every param after the step."""
     from repro_torch.tree import flatten
 
+    want_metrics, want_params = runs["ref_step"][arch]
+    got, got_params = runs["port"]["step"][arch]
+    assert _rel(got["loss"], float(want_metrics["loss"])) < LOSS_RTOL, arch
+    assert _rel(got["grad_norm"], float(want_metrics["grad_norm"])) < GNORM_RTOL, arch
+    assert _rel(got["lr"], float(want_metrics["lr"])) < 1e-6
     want = flatten(want_params)
-    assert want.keys() == runs["port"]["params"].keys()
+    assert want.keys() == got_params.keys()
     for name, w in want.items():
-        np.testing.assert_allclose(runs["port"]["params"][name], w, rtol=0, atol=PARAM_ATOL,
-                                   err_msg=name)
+        np.testing.assert_allclose(got_params[name], w, rtol=0, atol=PARAM_ATOL,
+                                   err_msg=f"{arch} {name}")
+
+
+def test_sharded_train_step_matches_the_reference(runs):
+    _step_matches(runs, "olmo-1b")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-780m"])
+def test_sharded_train_step_of_moe_and_ssm_matches_the_reference(runs, arch):
+    """The backward of the row-wise MoE (per-row dispatch and combine in
+    ``local_apply``, the router's gradient) and of mamba2's per-shard conv
+    and scan, held to the reference's sharded step."""
+    _step_matches(runs, arch)
 
 
 def test_sharded_mamba_step_matches_the_unsharded_step(runs):
