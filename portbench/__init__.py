@@ -1,0 +1,7 @@
+"""The benchmark of the PyTorch and CUDA port (``repro_torch``).
+
+``python3 portbench/run.py --workload <name> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once and prints its
+result as the last line of standard output.  Nothing here imports JAX or
+the JAX package.
+"""

@@ -1,0 +1,6 @@
+"""K3's share of its roofline over the stretch's prefills and decode steps: their bound from shapes over the profiler's time of K3's kernel, in %."""
+from portbench.metrics import common
+
+
+def read(ctx):
+    return common.roofline(ctx, "dispatch_one_kernel", "k3_bound_s")
