@@ -1,4 +1,4 @@
-# Port copy of src/repro/core/reorder.py (the port imports nothing of the JAX package): keep the two in sync by hand.
+# Port copy of src/repro/core/reorder.py (the port imports nothing of the JAX package): keep the two in sync by hand; the port drops NonBlockingReorderBuffer.blocked_time.
 """Output-reordering schemes (paper §3) — the in-thread serial-number
 protocol.
 
@@ -125,7 +125,6 @@ class NonBlockingReorderBuffer(ReorderBuffer):
         # lock-free: fig. 4 — slot ownership via the entry condition (next <= t < next+size) and publish-before-advance; exactly one drainer via the try-lock flag
         self._buffer: list[Optional[_Slot]] = [_EMPTY] * size
         self._flag = AtomicFlag()
-        self.blocked_time = 0.0  # always ~0; kept for symmetric instrumentation
         self._rejected = AtomicLong(0)  # entry-condition failures (ring full)
 
     @property

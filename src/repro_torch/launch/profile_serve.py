@@ -8,8 +8,11 @@ Serves the eight requests of ``chip_smoke.py`` (prompt lengths
 ``OrderedServingEngine(max_slots=4, max_len=1024)`` after a one-request
 warm-up, and reports:
 
-- host time per prefill and per decode step (each step ends in a device->host
-  read of its tokens, so a step's host time covers its device work);
+- host time per prefill and per decode step, from the engine's own
+  ``engine.prefill`` and ``engine.decode`` spans (each step ends in a
+  device->host read of its tokens, so a step's host time covers its device
+  work; taken under the profiler, it includes the profiler's cost and that
+  of the tracer's spans, each a ``record_function`` there);
 - device time by kernel group from ``torch.profiler`` (K3, K4, K5, matrix
   products, everything else) and the device's busy share of the wall time;
 - the same split for one prefill (the 333-token prompt, after three others)
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch import default_device
+from repro_torch import default_device, trace
 from repro_torch.configs import get_config
 from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.kernels.dispatch.ops import dispatch
@@ -64,22 +67,15 @@ def _group(kernel_name: str) -> str:
     return "other"
 
 
-def _timed(fn, log):
-    def wrapper(*a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        log.append(time.perf_counter() - t0)
-        return out
-    return wrapper
-
-
 def _device_split(prof) -> tuple[dict, dict, dict]:
-    """({group: device s}, {group: kernels run}, {kernel name: device s})."""
+    """({group: device s}, {group: kernels run}, {kernel name: device s});
+    the tracer's spans, shown on the device's timeline too, are no work."""
     groups: dict[str, float] = {}
     runs: dict[str, int] = {}
     kernels: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time > 0:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time > 0
+                and not ev.name.startswith(trace.PREFIX)):
             g = _group(ev.name)
             groups[g] = groups.get(g, 0.0) + ev.device_time / 1e6  # us -> s
             runs[g] = runs.get(g, 0) + 1
@@ -143,17 +139,19 @@ def main(argv=None):
     warm.run_to_completion()
 
     eng = engine()
-    prefill_s, decode_s = [], []
-    eng._do_prefill = _timed(eng._do_prefill, prefill_s)
-    eng._do_decode = _timed(eng._do_decode, decode_s)
     for prompt, n in requests:
         eng.submit(prompt, max_new_tokens=n)
     torch.cuda.synchronize()
+    trace.enable()  # the engine's own spans time each prefill and decode step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         comps = eng.run_to_completion()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    trace.disable()
+    spans = trace.take()
+    prefill_s, decode_s = ([(r.t1 - r.t0) / 1e9 for r in spans if r.name == name]
+                           for name in ("engine.prefill", "engine.decode"))
     groups, _, kernels = _device_split(prof)
 
     # one prefill and one decode step, each alone

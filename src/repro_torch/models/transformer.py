@@ -46,7 +46,7 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import ssm
 from .common import ModelConfig, apply_norm, meta
-from .. import default_device
+from .. import default_device, trace
 from ..sharding.context import get_mesh, local_apply, logical_spec, mesh_scope, shard
 from ..sharding.spec import P
 
@@ -126,6 +126,17 @@ def _stream(cfg: ModelConfig, h: torch.Tensor, seq: bool = True) -> torch.Tensor
 
 
 # ------------------------------------------------------------- period bodies
+def _period_span(body):
+    """Run a period body inside the tracer's ``layer.period`` span
+    (``repro_torch.trace``), also when the backward recomputes it."""
+    @functools.wraps(body)
+    def spanned(*args, **kwargs):
+        with trace.span("layer.period"):
+            return body(*args, **kwargs)
+    return spanned
+
+
+@_period_span
 def apply_period_train(
     cfg: ModelConfig,
     h: torch.Tensor,
@@ -156,6 +167,7 @@ def apply_period_train(
     return h, aux
 
 
+@_period_span
 def apply_period_prefill(
     cfg: ModelConfig,
     h: torch.Tensor,
@@ -184,6 +196,7 @@ def apply_period_prefill(
     return h, cache_slice
 
 
+@_period_span
 def apply_period_decode(
     cfg: ModelConfig,
     h: torch.Tensor,

@@ -13,6 +13,18 @@ jamba) and the slot token vector
 live on ``device`` and are updated in place (prefill installs each leaf with
 ``copy_``, decode writes into the cache), instead of being replaced by new
 arrays every step.
+
+With the port's tracer on (``repro_torch.trace``) the engine records, each
+decision, an ``engine.step`` span with an ``engine.prefill`` (the serial) or
+``engine.decode`` child, and inside those ``engine.upload`` (prompt or
+positions to the device), ``model.prefill``/``model.decode`` (the forward's
+enqueue), ``engine.readback`` (waiting for the tokens on the host),
+``engine.install`` (the prefill's cache copies) and ``engine.bookkeep`` (the
+slots and the reorder ring's sends); each prefilled request's wait from its
+submit as ``engine.queued``; and at each send the samples ``ring.held``, the
+completions handed to the ring (``completed``, beside ``stats``, the JAX
+engine's counters) and not yet emitted, and ``ring.parked``, those of them
+parked past the ring's window.
 """
 from __future__ import annotations
 
@@ -23,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import default_device, trace
 from ..core.reorder import NonBlockingReorderBuffer, ParkingReorderBuffer
 from ..core.serial import SerialAssigner
 from ..models import transformer
@@ -109,14 +121,17 @@ class OrderedServingEngine:
         self.tokens = torch.zeros((max_slots,), dtype=torch.long, device=self.device)
         self.active = np.zeros((max_slots,), bool)
         self.stats = {"prefills": 0, "decode_steps": 0, "emitted": 0}
+        self.completed = 0  # completions handed to the reorder ring
 
     # ------------------------------------------------------------ model calls
     def _prefill1(self, params, tokens: torch.Tensor):
-        return transformer.prefill(self.cfg, params, tokens, max_len=self.max_len)
+        with trace.span("model.prefill"):
+            return transformer.prefill(self.cfg, params, tokens, max_len=self.max_len)
 
     def _decode(self, params, tokens: torch.Tensor, cache, position: torch.Tensor):
-        logits, cache = transformer.decode_step(self.cfg, params, tokens, cache, position)
-        return logits.argmax(-1), cache
+        with trace.span("model.decode"):
+            logits, cache = transformer.decode_step(self.cfg, params, tokens, cache, position)
+            return logits.argmax(-1), cache
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16) -> int:
@@ -141,81 +156,100 @@ class OrderedServingEngine:
     @torch.no_grad()
     def _do_prefill(self) -> None:
         req = self.pending.pop(0)
-        b = self._free_slot()
-        assert b is not None
-        prompt = torch.from_numpy(req.prompt[None, :]).to(self.device, torch.long)
-        logits, cache1 = self._prefill1(self.params, prompt)
-        first = int(logits[0].argmax())
-        # install the request's cache into slot b (prefill->decode hand-off):
-        # every leaf, k/v or the ssm and conv states, is (nP, batch, ...)
-        for si, slot in self.cache.items():
-            for name, c in slot.items():
-                c[:, b].copy_(cache1[si][name][:, 0])
-        self.tokens[b] = first
-        self.position[b] = len(req.prompt)
-        self.slot_serial[b] = req.serial
-        self.slot_generated[b] = [first]
-        self.slot_budget[b] = req.max_new_tokens - 1
-        self.slot_t0[b] = req.submitted_at
-        self.active[b] = True
-        self.stats["prefills"] += 1
+        trace.since("engine.queued", req.submitted_at, req.serial)
+        with trace.span("engine.prefill", req.serial):
+            b = self._free_slot()
+            assert b is not None
+            with trace.span("engine.upload"):
+                prompt = torch.from_numpy(req.prompt[None, :]).to(self.device, torch.long)
+            logits, cache1 = self._prefill1(self.params, prompt)
+            with trace.span("engine.readback"):
+                first = int(logits[0].argmax())
+            # install the request's cache into slot b (prefill->decode hand-off):
+            # every leaf, k/v or the ssm and conv states, is (nP, batch, ...)
+            with trace.span("engine.install"):
+                for si, slot in self.cache.items():
+                    for name, c in slot.items():
+                        c[:, b].copy_(cache1[si][name][:, 0])
+                self.tokens[b] = first
+            self.position[b] = len(req.prompt)
+            self.slot_serial[b] = req.serial
+            self.slot_generated[b] = [first]
+            self.slot_budget[b] = req.max_new_tokens - 1
+            self.slot_t0[b] = req.submitted_at
+            self.active[b] = True
+            self.stats["prefills"] += 1
 
     @torch.no_grad()
     def _do_decode(self) -> None:
-        # ``self.position`` is a host buffer mutated in place below (and by
-        # ``_do_prefill``).  ``torch.from_numpy`` aliases it, and a host->device
-        # copy from it may still be in flight when the host mutates it, so the
-        # decode would read a *later* position.  A fresh copy per call is
-        # never mutated.
-        position = torch.from_numpy(self.position.copy()).to(self.device)
-        next_tok, self.cache = self._decode(self.params, self.tokens, self.cache, position)
-        self.tokens = next_tok
-        self.position += self.active.astype(np.int32)
-        self.stats["decode_steps"] += 1
-        toks = next_tok.cpu().numpy().reshape(-1)
-        for b in range(self.max_slots):
-            if not self.active[b]:
-                continue
-            self.slot_generated[b].append(int(toks[b]))
-            self.slot_budget[b] -= 1
-            done = (
-                self.slot_budget[b] <= 0
-                or int(toks[b]) == self.eos
-                or self.position[b] >= self.max_len - 1
-            )
-            if done:
-                comp = Completion(
-                    self.slot_serial[b],
-                    np.asarray(self.slot_generated[b], np.int32),
-                    time.perf_counter() - self.slot_t0[b],
-                )
-                # ordered egress: the reorder buffer holds it until all
-                # earlier-arrived requests have been emitted; out-of-window
-                # completions park (never spin) and drain on later sends
-                self._reorder.send(comp.serial, comp)
-                self.active[b] = False
-                self.slot_serial[b] = -1
+        with trace.span("engine.decode"):
+            # ``self.position`` is a host buffer mutated in place below (and by
+            # ``_do_prefill``).  ``torch.from_numpy`` aliases it, and a host->device
+            # copy from it may still be in flight when the host mutates it, so the
+            # decode would read a *later* position.  A fresh copy per call is
+            # never mutated.
+            with trace.span("engine.upload"):
+                position = torch.from_numpy(self.position.copy()).to(self.device)
+            next_tok, self.cache = self._decode(self.params, self.tokens, self.cache, position)
+            self.tokens = next_tok
+            self.position += self.active.astype(np.int32)
+            self.stats["decode_steps"] += 1
+            with trace.span("engine.readback"):
+                toks = next_tok.cpu().numpy().reshape(-1)
+            with trace.span("engine.bookkeep"):
+                for b in range(self.max_slots):
+                    if not self.active[b]:
+                        continue
+                    self.slot_generated[b].append(int(toks[b]))
+                    self.slot_budget[b] -= 1
+                    done = (
+                        self.slot_budget[b] <= 0
+                        or int(toks[b]) == self.eos
+                        or self.position[b] >= self.max_len - 1
+                    )
+                    if done:
+                        comp = Completion(
+                            self.slot_serial[b],
+                            np.asarray(self.slot_generated[b], np.int32),
+                            time.perf_counter() - self.slot_t0[b],
+                        )
+                        # ordered egress: the reorder buffer holds it until all
+                        # earlier-arrived requests have been emitted; out-of-window
+                        # completions park (never spin) and drain on later sends
+                        self._send(comp)
+                        self.active[b] = False
+                        self.slot_serial[b] = -1
+
+    def _send(self, comp: Completion) -> None:
+        self._reorder.send(comp.serial, comp)
+        self.completed += 1
+        if trace.on():
+            trace.sample("ring.held", self.completed - self.stats["emitted"], comp.serial)
+            # the engine is single threaded: between two sends nothing else
+            # parks or drains, so a rise from one sample to the next is a park
+            trace.sample("ring.parked", self._reorder.parked_count(), comp.serial)
 
     # ------------------------------------------------------------------ run
     def step(self) -> bool:
         """One scheduler decision. Returns False when fully idle."""
-        can_prefill = self.pending and self._free_slot() is not None
-        can_decode = self.active.any()
-        if not can_prefill and not can_decode:
-            return False
-        if self.schedule == "prefill_first":
-            if can_prefill:
-                self._do_prefill()
-            else:
-                self._do_decode()
-        else:  # interleave: keep the decode pipeline flowing (CT-style)
-            if can_decode and (self.stats["decode_steps"] == 0 or not can_prefill):
-                self._do_decode()
-            elif can_prefill and self.active.sum() < self.max_slots:
-                self._do_prefill()
-            else:
-                self._do_decode()
-        return True
+        with trace.span("engine.step"):
+            can_prefill = self.pending and self._free_slot() is not None
+            can_decode = self.active.any()
+            if not can_prefill and not can_decode:
+                return False
+            if self.schedule == "prefill_first":
+                if can_prefill:
+                    self._do_prefill()
+                else:
+                    self._do_decode()
+            else:  # interleave: keep the decode pipeline flowing (CT-style)
+                if can_decode and (self.stats["decode_steps"] == 0 or not can_prefill):
+                    self._do_decode()
+                elif can_prefill and self.active.sum() < self.max_slots:
+                    self._do_prefill()
+                else:
+                    self._do_decode()
+            return True
 
     def run_to_completion(self, max_steps: int = 100_000) -> list[Completion]:
         """Step until every submitted request completed; returns the

@@ -16,6 +16,11 @@ by the ``*_shardings`` builders (trees of ``NamedSharding``, applied with
 is redistributed to its parameter's placements before the update (the
 data-parallel reduction).  The ``abstract_*`` builders give ``meta``
 tensors of the inputs' shapes and dtypes, for the dry-run.
+
+With the port's tracer on (``repro_torch.trace``) a train step records a
+``train.step`` span with the children ``train.forward`` (the loss),
+``train.backward`` (the gradients, the checkpoints' recompute included) and
+``train.adamw`` (the update).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import trace
 from ..models import transformer
 from ..models.common import ModelConfig, abstract_params, meta, param_pspecs
 from ..sharding.partitioning import (NamedSharding, batch_spec, cache_pspecs, named,
@@ -65,19 +71,25 @@ def _device_batch(batch: dict, like: torch.Tensor) -> dict:
 # ----------------------------------------------------------------- train
 def make_train_step(cfg: ModelConfig, ocfg: OptConfig):
     def train_step(params, opt_state, batch):
-        flat = tree_leaves(params)
-        batch = _device_batch(batch, flat[0])
-        # detached aliases of the parameters: autograd differentiates with
-        # respect to them, and the update then writes the parameters in place
-        leaves = [p.detach().requires_grad_() for p in flat]
-        with torch.enable_grad(), mesh_scope():
-            loss, metrics = transformer.loss_fn(cfg, tree_unflatten(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-            grads = [_like(g, p) for g, p in zip(grads, flat)]
-            params, opt_state, opt_metrics = apply_adamw(
-                ocfg, params, tree_unflatten(params, grads), opt_state)
-        metrics = dict(metrics, loss=loss, **opt_metrics)
-        return params, opt_state, {k: replicated(v.detach()) for k, v in metrics.items()}
+        with trace.span("train.step"):
+            flat = tree_leaves(params)
+            batch = _device_batch(batch, flat[0])
+            # detached aliases of the parameters: autograd differentiates with
+            # respect to them, and the update then writes the parameters in place
+            leaves = [p.detach().requires_grad_() for p in flat]
+            with torch.enable_grad(), mesh_scope():
+                with trace.span("train.forward"):
+                    loss, metrics = transformer.loss_fn(cfg, tree_unflatten(params, leaves),
+                                                        batch)
+                with trace.span("train.backward"):  # the recompute included
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                materialize_grads=True)
+                    grads = [_like(g, p) for g, p in zip(grads, flat)]
+                with trace.span("train.adamw"):
+                    params, opt_state, opt_metrics = apply_adamw(
+                        ocfg, params, tree_unflatten(params, grads), opt_state)
+            metrics = dict(metrics, loss=loss, **opt_metrics)
+            return params, opt_state, {k: replicated(v.detach()) for k, v in metrics.items()}
 
     return train_step
 

@@ -99,7 +99,8 @@ def test_port_tests_import_no_jax_and_no_reference_package(path):
 
 
 # The port's copies of JAX-free reference modules that are verbatim: equal to
-# the original apart from the first-line marker and repro_torch -> repro.
+# the original apart from the first-line marker, repro_torch -> repro and the
+# lines DROPPED below.
 # Not listed, for their declared differences (ROADMAP north star):
 # core/operators.py and core/api.py (the device backend names, relative
 # plancheck imports), core/procrun.py (backend names, the CUDA fork guard,
@@ -116,14 +117,28 @@ VERBATIM_COPIES = (
 )
 
 
+# Lines of an original that its copy drops, each copy naming what it drops
+# at the end of its marker: the port's reorder ring has no blocked_time,
+# which nothing reads (always 0.0 in the non-blocking ring).
+DROPPED = {
+    "core/reorder.py": ("NonBlockingReorderBuffer.blocked_time", (
+        "        self.blocked_time = 0.0  # always ~0; kept for symmetric instrumentation\n",)),
+}
+
+
 @pytest.mark.parametrize("rel", VERBATIM_COPIES)
 def test_verbatim_copy_equals_its_original(rel):
     copy = (PORT / rel).read_text().splitlines(keepends=True)
+    what, lines = DROPPED.get(rel, (None, ()))
     marker = (f"# Port copy of src/repro/{rel} (the port imports nothing of the JAX "
-              "package): keep the two in sync by hand.\n")
+              "package): keep the two in sync by hand"
+              + (f"; the port drops {what}" if what else "") + ".\n")
     assert copy[0] == marker
-    original = (REPO / "src" / "repro" / rel).read_text()
-    assert "".join(copy[1:]).replace("repro_torch", "repro") == original
+    original = (REPO / "src" / "repro" / rel).read_text().splitlines(keepends=True)
+    for line in lines:
+        assert original.count(line) == 1, line
+        original.remove(line)
+    assert "".join(copy[1:]).replace("repro_torch", "repro") == "".join(original)
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu():
