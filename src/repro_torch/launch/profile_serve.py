@@ -17,7 +17,11 @@ warm-up, and reports:
   products, everything else) and the device's busy share of the wall time;
 - the same split for one prefill (the 333-token prompt, after three others)
   and one decode step with the four slots full, each profiled alone, with
-  the launches the wrappers counted in it.
+  the launches the wrappers counted in it;
+- beside the decode steps, how many of them replayed the engine's CUDA
+  graph (``decode_replays``: on the card an engine captures its decode step
+  at its first decode, so the served run's first step is a capture; the
+  lone step is taken after one decode, so it is a replay).
 
 A config that does not fit on one card is served with the cut of
 :data:`SERVED_CUTS`, as ``chip_smoke.py`` serves it.  The last line is a
@@ -161,7 +165,10 @@ def main(argv=None):
     for _ in range(3):
         solo._do_prefill()
     one_prefill = _profile_step(solo._do_prefill)
+    solo._do_decode()  # the capture
+    replays = solo.decode_replays
     one_decode = _profile_step(solo._do_decode)
+    one_decode["decode_replays"] = solo.decode_replays - replays
 
     busy = sum(groups.values())
     ntok = sum(len(c.tokens) for c in comps)
@@ -171,7 +178,8 @@ def main(argv=None):
           f"{ntok} tokens, wall {wall:.4f}s under the profiler ({ntok / wall:.1f} tok/s)")
     print(f"host time: {len(prefill_s)} prefills {sum(prefill_s):.4f}s "
           f"(mean {np.mean(prefill_s) * 1e3:.3f} ms), {len(decode_s)} decode steps "
-          f"{sum(decode_s):.4f}s (mean {np.mean(decode_s) * 1e3:.3f} ms)")
+          f"{sum(decode_s):.4f}s (mean {np.mean(decode_s) * 1e3:.3f} ms), "
+          f"{eng.decode_replays} of them graph replays")
     for g, s in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"device time {g}: {s:.4f}s ({s / wall:.4f} of wall)")
     for name, s in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
@@ -179,13 +187,15 @@ def main(argv=None):
     print(f"device busy share: {busy / wall:.4f}" if busy else
           "device busy share: not measured (the profiler recorded no device time)")
     _print_step(f"prefill ({len(requests[3][0])} tokens)", one_prefill)
-    _print_step("decode step (4 slots)", one_decode)
+    _print_step(f"decode step (4 slots; graph replays {one_decode['decode_replays']})",
+                one_decode)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "arch": cfg.name, "layers": cfg.num_layers,
         "schedule": args.schedule,
         "tokens": ntok, "wall_s": wall, "tok_per_s": ntok / wall,
         "prefills": len(prefill_s), "prefill_host_s": sum(prefill_s),
         "decode_steps": len(decode_s), "decode_host_s": sum(decode_s),
+        "decode_replays": eng.decode_replays,
         "device_s_by_group": groups, "device_busy_share": busy / wall if busy else None,
         "one_prefill": one_prefill, "one_decode_step": one_decode,
     }))

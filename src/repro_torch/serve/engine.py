@@ -14,13 +14,27 @@ live on ``device`` and are updated in place (prefill installs each leaf with
 ``copy_``, decode writes into the cache), instead of being replaced by new
 arrays every step.
 
+On the card and with no mesh in scope, the decode step is one CUDA graph: its
+shapes are fixed for the engine's life (``max_slots`` tokens, a cache
+``max_len`` long, updated in place), and nothing in it waits for the host.
+The engine's first decode runs the step eagerly on a side stream (its
+results are that step's) and captures it; each later decode refills the
+positions and replays the graph, which reads the slots' tokens from the
+``tokens`` the engine was built with and writes the next ones there, so a
+prefill's install writes into what the next replay reads.  ``decode_replays`` counts the replays, and
+the kernels' ``LAUNCHES`` counters advance on each by what the capture
+launched.  On the CPU, under a mesh, or for a call with other params or
+another cache than the engine's own, the step runs eagerly.  The graph and
+its memory pool are the engine's, and go with it.
+
 With the port's tracer on (``repro_torch.trace``) the engine records, each
 decision, an ``engine.step`` span with an ``engine.prefill`` (the serial) or
 ``engine.decode`` child, and inside those ``engine.upload`` (prompt or
 positions to the device), ``model.prefill``/``model.decode`` (the forward's
-enqueue), ``engine.readback`` (waiting for the tokens on the host),
-``engine.install`` (the prefill's cache copies) and ``engine.bookkeep`` (the
-slots and the reorder ring's sends); each prefilled request's wait from its
+enqueue, or the graph's replay), ``engine.readback`` (waiting for the tokens
+on the host), ``engine.install`` (the prefill's cache copies) and
+``engine.bookkeep`` (the slots and the reorder ring's sends); the decode
+step's capture as ``engine.capture``; each prefilled request's wait from its
 submit as ``engine.queued``; and at each send the samples ``ring.held``, the
 completions handed to the ring (``completed``, beside ``stats``, the JAX
 engine's counters) and not yet emitted, and ``ring.parked``, those of them
@@ -38,8 +52,16 @@ import torch
 from .. import default_device, trace
 from ..core.reorder import NonBlockingReorderBuffer, ParkingReorderBuffer
 from ..core.serial import SerialAssigner
+from ..kernels.attention.ops import flash_attention
+from ..kernels.dispatch.ops import dispatch
+from ..kernels.ssd.ops import ssd
 from ..models import transformer
 from ..models.common import ModelConfig
+from ..sharding.context import get_mesh
+
+# the kernel wrappers whose ``LAUNCHES`` count a replay advances by what the
+# graph's capture launched, as the eager step would have
+_COUNTERS = (dispatch, ssd, flash_attention)
 
 
 @dataclass
@@ -122,6 +144,17 @@ class OrderedServingEngine:
         self.active = np.zeros((max_slots,), bool)
         self.stats = {"prefills": 0, "decode_steps": 0, "emitted": 0}
         self.completed = 0  # completions handed to the reorder ring
+        self.decode_replays = 0  # decode steps run as a replay of the captured graph
+        self._graph = None  # the decode step as a CUDA graph, from the first decode
+        self._launched = ()  # the counts of _COUNTERS the capture launched
+        if self.device.type == "cuda":
+            # what the graph reads its tokens and positions from (it writes
+            # the next tokens over its input), and the pinned host buffer the
+            # positions are copied from asynchronously
+            self._graph_tokens = self.tokens
+            self._position = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
+            self._staging = torch.zeros((max_slots,), dtype=torch.int32, pin_memory=True)
+            self._staged = torch.cuda.Event()  # recorded after each copy out of _staging
 
     # ------------------------------------------------------------ model calls
     def _prefill1(self, params, tokens: torch.Tensor):
@@ -129,9 +162,60 @@ class OrderedServingEngine:
             return transformer.prefill(self.cfg, params, tokens, max_len=self.max_len)
 
     def _decode(self, params, tokens: torch.Tensor, cache, position: torch.Tensor):
+        """The next token of every slot, and the cache (updated in place).
+        Replays the engine's graph where ``_graphed`` holds (capturing it at
+        the first call), and then returns the graph's token buffer, which
+        now holds the next tokens."""
         with trace.span("model.decode"):
-            logits, cache = transformer.decode_step(self.cfg, params, tokens, cache, position)
-            return logits.argmax(-1), cache
+            if not self._graphed(params, cache):
+                logits, cache = transformer.decode_step(self.cfg, params, tokens, cache, position)
+                return logits.argmax(-1), cache
+            if tokens is not self._graph_tokens:
+                self._graph_tokens.copy_(tokens)
+            if position is not self._position:
+                self._position.copy_(position)
+            if self._graph is None:
+                self._capture()
+            else:
+                self._graph.replay()
+                self.decode_replays += 1
+                for fn, n in zip(_COUNTERS, self._launched):
+                    fn.LAUNCHES += n
+            return self._graph_tokens, cache
+
+    def _graphed(self, params, cache) -> bool:
+        """Whether a decode of ``params`` over ``cache`` runs as the graph:
+        on the card, with no mesh in scope, on the engine's own params and
+        cache (whose storage the graph reads and writes)."""
+        return (self.device.type == "cuda" and get_mesh() is None
+                and params is self.params and cache is self.cache)
+
+    @torch.no_grad()
+    def _capture(self) -> None:
+        """One eager decode step on a side stream, which leaves the cache
+        and the token buffer as this call's step must (cuBLAS sets up its
+        handle and workspace for that stream there), then the same step
+        captured on that stream as the engine's graph.  The capture runs
+        nothing, so the counts its wrappers added are taken back."""
+        def step():
+            logits, _ = transformer.decode_step(self.cfg, self.params, self._graph_tokens,
+                                                self.cache, self._position)
+            self._graph_tokens.copy_(logits.argmax(-1))
+
+        with trace.span("engine.capture"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            before = [fn.LAUNCHES for fn in _COUNTERS]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                step()
+            self._launched = tuple(fn.LAUNCHES - n for fn, n in zip(_COUNTERS, before))
+            for fn, n in zip(_COUNTERS, before):
+                fn.LAUNCHES = n
+            self._graph = graph
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16) -> int:
@@ -183,13 +267,8 @@ class OrderedServingEngine:
     @torch.no_grad()
     def _do_decode(self) -> None:
         with trace.span("engine.decode"):
-            # ``self.position`` is a host buffer mutated in place below (and by
-            # ``_do_prefill``).  ``torch.from_numpy`` aliases it, and a host->device
-            # copy from it may still be in flight when the host mutates it, so the
-            # decode would read a *later* position.  A fresh copy per call is
-            # never mutated.
             with trace.span("engine.upload"):
-                position = torch.from_numpy(self.position.copy()).to(self.device)
+                position = self._upload_position()
             next_tok, self.cache = self._decode(self.params, self.tokens, self.cache, position)
             self.tokens = next_tok
             self.position += self.active.astype(np.int32)
@@ -219,6 +298,22 @@ class OrderedServingEngine:
                         self._send(comp)
                         self.active[b] = False
                         self.slot_serial[b] = -1
+
+    def _upload_position(self) -> torch.Tensor:
+        """The slots' positions on the device, as ``self.position`` holds
+        them now.  ``self.position`` is a host buffer mutated in place after
+        each decode (and by ``_do_prefill``); a host->device copy from it may
+        still be in flight when the host mutates it, so the decode would read
+        a *later* position.  The graph's positions come from the pinned
+        ``_staging``, written only once its last copy has landed; an eager
+        step gets a fresh copy per call, which is never mutated."""
+        if not self._graphed(self.params, self.cache):
+            return torch.from_numpy(self.position.copy()).to(self.device)
+        self._staged.synchronize()
+        self._staging.numpy()[:] = self.position
+        self._position.copy_(self._staging, non_blocking=True)
+        self._staged.record(torch.cuda.current_stream(self.device))
+        return self._position
 
     def _send(self, comp: Completion) -> None:
         self._reorder.send(comp.serial, comp)
