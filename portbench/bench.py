@@ -12,6 +12,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import host
+
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}  # top-level names, compared whole
@@ -140,3 +142,14 @@ def setup_line(run: Run, marks: list) -> None:
     parts = [f"before {marks[0][1] - run.t_start:.3f}"] + [
         f"{name} {t - marks[i][1]:.3f}" for i, (name, t) in enumerate(marks[1:])]
     print("setup s: " + ", ".join(parts), file=sys.stderr)
+    print(host.line(run.cell["chips"]), file=sys.stderr)
+
+
+def window_line(steps: list) -> str:
+    """Steps of each kind in the window and their mean host ms: with a
+    serving cell bound by the host's enqueue, the host's speed in the run."""
+    parts = []
+    for kind in sorted({s["kind"] for s in steps}):
+        t = [s["t1"] - s["t0"] for s in steps if s["kind"] == kind]
+        parts.append(f"{kind} {len(t)} x {1e3 * sum(t) / len(t):.3f} ms")
+    return "window: " + ", ".join(parts)

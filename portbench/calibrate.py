@@ -49,7 +49,7 @@ def serve_seed(run, control: bool) -> dict:
     limits = run.params["limits"]
     modes = (("", False), ("control.", "fp8"), ("bf16_witness.", "bf16"))
     for name, ctl in modes if control else modes[:1]:
-        gaps = serving.served_gaps(run.model, params, w["asked"], picked, run.device, ctl)
+        gaps = serving.served_gaps(run, params, w["asked"], picked, ctl)
         numbers = serving.gap_numbers(gaps)
         checks = bench.judge({k: v for k, v in numbers.items() if k in limits}, limits)
         out.update({name + k: v for k, v in numbers.items()})

@@ -3,4 +3,4 @@ from portbench.metrics import common
 
 
 def read(ctx):
-    return common.roofline(ctx, "dispatch_one_kernel", "k3_bound_s")
+    return common.roofline(ctx, "k3_bound_s")

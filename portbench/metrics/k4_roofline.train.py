@@ -3,4 +3,4 @@ from portbench.metrics import common
 
 
 def read(ctx):
-    return common.roofline(ctx, "flash_fwd", "k4_bound_s")
+    return common.roofline(ctx, "k4_bound_s")

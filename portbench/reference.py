@@ -1,13 +1,13 @@
-"""Plain float32 reference of the served and trained models.
+"""Plain float32 layers of the reference models, and the reference's AdamW.
 
-It follows the published decoder as the configuration file states it, from
-the equations and not from the program: pre-norm blocks (OLMo's norm with no
-parameters, or RMSNorm with a scale, epsilon 1e-6), rotary positions on
-interleaved pairs, causal softmax attention scaled by 1/sqrt(head width),
-a SwiGLU MLP or a routed mixture (softmax router, the top k renormalised,
-every routed assignment computed: no capacity, so no token is dropped) with
-shared experts beside it, a final norm and the output head over the real
-vocabulary.  It reads the benchmark's weights and nothing of the program.
+Each layer follows the published equations and not the program: OLMo's
+norm with no parameters or RMSNorm with a scale (epsilon 1e-6), rotary
+positions on interleaved pairs, causal softmax attention scaled by
+1/sqrt(head width), a SwiGLU MLP or a routed mixture (softmax router, the
+top k renormalised, every routed assignment computed: no capacity, so no
+token is dropped) with shared experts beside it.  A family's module
+(``families/<name>.py``) walks them in its model's order; the layers read
+the benchmark's weights and nothing of the program.
 
 Everything is float32 with TF32 off.  ``control=True`` rounds both inputs
 of every linear layer but the router to float8 e4m3 (the activations per token, the
@@ -128,67 +128,12 @@ def ffn(model: dict, lin: Linear, p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + y
 
 
-def layer_weights(params: dict, i: int, lin: Linear) -> dict:
-    """Layer ``i`` of the stacked tree, in float32 (the control's rounded)."""
-    out = {}
-    for block in params["layers"]["0"].values():
-        for name, t in block.items():
-            w = t[i]
-            keep = name.endswith("_scale") or name == "w_router"
-            out[name] = w.float() if keep else lin.weight(w)
-    return out
-
-
-def split(p: dict) -> tuple[dict, dict]:
-    at = {k: p[k] for k in ("wq", "wk", "wv", "wo", "norm_scale") if k in p}
-    return at, {k: v for k, v in p.items() if k not in at}
-
-
-def logits_at(model: dict, params: dict, lin: Linear, h: torch.Tensor) -> torch.Tensor:
-    h = norm(model, h, params.get("final_norm_scale"))
-    return lin(h, lin.weight(params["lm_head"]))[:, : model["vocab_size"]]
-
-
-@torch.no_grad()
-def served_logits(model: dict, params: dict, seqs: list, wanted: list,
-                  control: bool = False) -> list:
-    """For each token sequence (L,) the logits (len(wanted), vocab) at the
-    positions ``wanted`` of a full causal pass, computed layer by layer over
-    all sequences (each layer's weights made float32 once)."""
-    no_tf32()
-    lin = Linear(control)
-    hs = [params["embed"][s.long()].float() for s in seqs]
-    for i in range(model["num_layers"]):
-        at, ff = split(layer_weights(params, i, lin))
-        hs = [ffn(model, lin, ff, attention(model, lin, at, h)) for h in hs]
-        del at, ff
-    return [logits_at(model, params, lin, h[w]) for h, w in zip(hs, wanted)]
-
-
 def gaps(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """How far each token's logit lies below the best logit of its row."""
     return logits.max(-1).values - logits.gather(-1, tokens.long()[:, None])[:, 0]
 
 
 # ------------------------------------------------------------------ training
-def train_loss(model: dict, w: dict, lin: Linear, tokens, labels) -> torch.Tensor:
-    """Sum over the rows' positions of the next-token NLL, for float32
-    leaves ``w`` (dotted names) that autograd follows."""
-    layers = {k[len("layers.0."):]: v for k, v in w.items() if k.startswith("layers.0.")}
-    loss = torch.zeros((), device=tokens.device)
-    for b in range(tokens.shape[0]):
-        x = w["embed"][tokens[b].long()]
-        for i in range(model["num_layers"]):
-            p = {name.split(".", 1)[1]: t[i] for name, t in layers.items()}
-            at, ff = split({k: (v if k.endswith("_scale") else lin.weight(v)) for k, v in p.items()})
-            x = ffn(model, lin, ff, attention(model, lin, at, x))
-        logits = logits_at(model, {"lm_head": w["lm_head"], **(
-            {"final_norm_scale": w["final_norm_scale"]} if "final_norm_scale" in w else {})},
-            lin, x)
-        loss = loss + F.cross_entropy(logits, labels[b].long(), reduction="sum")
-    return loss
-
-
 def lr_at(opt: dict, step: int) -> float:
     if step < opt["warmup_steps"]:
         return opt["peak_lr"] * step / max(opt["warmup_steps"], 1)
@@ -198,10 +143,12 @@ def lr_at(opt: dict, step: int) -> float:
     return opt["peak_lr"] * frac
 
 
-def train_steps(model: dict, opt: dict, flat: dict, batches: list, *, control: bool = False,
+def adamw_steps(loss_fn, opt: dict, flat: dict, batches: list, *, control: bool = False,
                 rows: int = 2, keep_rows: int = 0) -> dict:
     """AdamW (global-norm clipping, decoupled weight decay on every leaf)
-    over ``batches`` from the bfloat16 leaves ``flat``.  Returns each step's
+    over ``batches`` from the bfloat16 leaves ``flat``, on the summed loss
+    ``loss_fn(w, lin, tokens, labels)`` of float32 leaves ``w`` (dotted
+    names) that autograd follows.  Returns each step's
     mean loss, each leaf's clipped first gradient norm and each leaf's
     change after the last step.  The rows of a batch go through in blocks of
     ``rows``.  ``keep_rows`` > 0 takes the mean over the first rows alone (a
@@ -220,7 +167,7 @@ def train_steps(model: dict, opt: dict, flat: dict, batches: list, *, control: b
         n = tokens.numel()
         total = 0.0
         for r0 in range(0, tokens.shape[0], rows):
-            part = train_loss(model, w, lin, tokens[r0:r0 + rows], labels[r0:r0 + rows]) / n
+            part = loss_fn(w, lin, tokens[r0:r0 + rows], labels[r0:r0 + rows]) / n
             part.backward()
             total += float(part.detach())
         losses.append(total)

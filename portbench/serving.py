@@ -27,8 +27,10 @@ import time
 import numpy as np
 import torch
 
-from . import counts, reference, weights
-from .bench import Run, end_to_end, judge, passed, pct, read_per_layer, setup_line
+from . import families, reference, weights
+from .bench import (Run, end_to_end, judge, passed, pct, read_per_layer, setup_line,
+                    window_line)
+from .host import GcWatch
 from .trace import Spans, Stretch, breakdown, kernel_line
 from .traffic import RequestSource, block_lengths
 
@@ -59,23 +61,10 @@ def _warm(engine, longest: int, device) -> None:
     engine.tokens.zero_()
 
 
-def _k3_bound(model: dict, tokens: int) -> float:
-    """Every assignment is kept: the configuration's capacity drops none."""
-    if not model.get("num_experts"):
-        return 0.0
-    return model["num_layers"] * counts.bound_s(
-        *counts.k3(tokens, model["top_k"], model["num_experts"], model["d_model"]))
-
-
-def _k4_bound(model: dict, seq: int) -> float:
-    H = model["num_heads"]
-    return model["num_layers"] * counts.bound_s(
-        *counts.k4(1, seq, H, model["num_kv_heads"], model["d_model"] // H))
-
-
 def window(run: Run, engine, spans: Spans) -> dict:
     """Drive the engine for ``run.seconds``; returns what the window saw."""
     model, mix, depth = run.model, run.mix, run.params["depth"]
+    fam = families.of(run.config)
     source = RequestSource(mix, run.seed, model["vocab_size"], run.params["max_len"])
     stretch = Stretch(spans) if run.trace else None
     steps, egress, asked = [], [], {}
@@ -103,12 +92,12 @@ def window(run: Run, engine, spans: Spans) -> dict:
         kind, a, b, traced = spans.records[-1]
         if kind == "prefill":
             S = head.prompt.size
-            step = {"tokens": S + 1, "flops": counts.prefill_flops(model, S),
-                    "k4_bound_s": _k4_bound(model, S), "k3_bound_s": _k3_bound(model, S)}
+            step = {"tokens": S + 1, "flops": fam.prefill_flops(model, S),
+                    **fam.prefill_bounds(model, S)}
         else:
             step = {"tokens": int(active.sum()),
-                    "flops": counts.decode_flops(model, position[active].tolist()),
-                    "k4_bound_s": 0.0, "k3_bound_s": _k3_bound(model, engine.max_slots)}
+                    "flops": fam.decode_flops(model, position[active].tolist()),
+                    **fam.decode_bounds(model, engine.max_slots)}
         steps.append(dict(step, kind=kind, t0=a, t1=b, traced=traced))
         with spans.span("egress"):
             t = time.perf_counter()
@@ -148,11 +137,12 @@ def sample(egress: list, seed: int, k: int) -> list:
     return [egress[i] for i in [longest] + sorted(pick)]
 
 
-def served_gaps(model: dict, params: dict, asked: dict, picked: list, device,
-                control=False) -> list:
+def served_gaps(run: Run, params: dict, asked: dict, picked: list, control=False) -> list:
     """For each picked request, how far each served token's logit lies
-    below the reference's best at its position.  With ``control`` ("fp8",
-    or "bf16" for a witness) the tokens scored are that pass's own choices."""
+    below the reference's best at its position (the family's float32
+    pass).  With ``control`` ("fp8", or "bf16" for a witness) the tokens
+    scored are that pass's own choices."""
+    model, device, fam = run.model, run.device, families.of(run.config)
     seqs, wanted, served = [], [], []
     for e in picked:
         prompt = torch.from_numpy(asked[e["serial"]].prompt.astype(np.int64))
@@ -161,9 +151,9 @@ def served_gaps(model: dict, params: dict, asked: dict, picked: list, device,
         S = prompt.numel()
         wanted.append(torch.arange(S - 1, S - 1 + toks.numel(), device=device))
         served.append(toks.to(device))
-    ref = reference.served_logits(model, params, seqs, wanted)
+    ref = fam.served_logits(model, params, seqs, wanted)
     if control:
-        low = reference.served_logits(model, params, seqs, wanted, control=control)
+        low = fam.served_logits(model, params, seqs, wanted, control=control)
         served = [lg.argmax(-1) for lg in low]
     return [reference.gaps(r, t) for r, t in zip(ref, served)]
 
@@ -206,7 +196,8 @@ def make_engine(run: Run, params: dict):
 def setup(run: Run):
     """Weights, engine and warm-up; returns (params, engine, spans)."""
     marks = [("start", time.perf_counter())]
-    params = weights.make(run.model, run.seed, run.device)
+    params = weights.make(run.model, families.of(run.config).layout(run.model), run.seed,
+                          run.device)
     marks.append(("weights", time.perf_counter()))
     engine = make_engine(run, params)
     marks.append(("engine", time.perf_counter()))
@@ -230,8 +221,11 @@ def run_cell(run: Run, memory_peak=lambda: 0) -> tuple:
     """Set-up, window and check; returns (result, checks)."""
     params, engine, spans = setup(run)
     setup_s = time.perf_counter() - run.t_start
-    w = window(run, engine, spans)
+    with GcWatch() as gcw:
+        w = window(run, engine, spans)
     peak = memory_peak()
+    print(gcw.line(), file=sys.stderr)
+    print(window_line(w["steps"]), file=sys.stderr)
     egress, asked = w["egress"], w["asked"]
     del engine
     gc.collect()
@@ -239,7 +233,7 @@ def run_cell(run: Run, memory_peak=lambda: 0) -> tuple:
         torch.cuda.empty_cache()
     values = order_checks(egress, asked)
     picked = sample(egress, run.seed, run.mix["sample"])
-    gaps = served_gaps(run.model, params, asked, picked, run.device)
+    gaps = served_gaps(run, params, asked, picked)
     values.update(gap_numbers(gaps))
     limits = run.params["limits"]
     checks = judge({k: v for k, v in values.items() if k in limits}, limits)
@@ -248,12 +242,14 @@ def run_cell(run: Run, memory_peak=lambda: 0) -> tuple:
         float(g.max()) > widest or ("half_off_requests" in limits and half_off(g)) for g in gaps)
     result = {"correct": bool(egress) and passed(checks), "attempted": len(egress),
               "failed": failed, "metrics": {}, "device": {"memory_peak_bytes": peak}}
-    ctx = {"steps": w["steps"], "egress": egress, "window_s": w["window_s"], "trace": w["trace"]}
+    kernels = families.of(run.config).KERNELS
+    ctx = {"steps": w["steps"], "egress": egress, "window_s": w["window_s"], "trace": w["trace"],
+           "kernels": {key: needle for needle, key in kernels}}
     if run.trace:
         result["metrics"] = read_per_layer(run, ctx)
         result["device"].update(busy_s=w["trace"]["busy_s"], window_s=w["trace"]["window_s"])
         result["breakdown"] = breakdown(w["trace"])
-        print(kernel_line(w["trace"], ("flash_fwd", "dispatch_one_kernel")), file=sys.stderr)
+        print(kernel_line(w["trace"], [needle for needle, _ in kernels]), file=sys.stderr)
     else:
         result["metrics"] = end_to_end(run, dict(rates(w), setup_s=setup_s))
     return result, checks

@@ -2,6 +2,7 @@
 import pytest
 
 from portbench import counts
+from portbench.families import transformer
 
 DENSE = dict(d_model=8, num_heads=2, num_kv_heads=2, num_layers=1, d_ff=16, vocab_size=10)
 MOE = dict(d_model=8, num_heads=2, num_kv_heads=2, num_layers=1, d_ff=4, vocab_size=10,
@@ -55,20 +56,20 @@ def test_configured_capacity_drops_nothing():
 
 def test_model_flops_by_hand():
     # attention 8 x 4 x (2 + 2 + 2 + 2) = 256, MLP 3 x 8 x 16 = 384, head 80
-    assert counts.linear_weights(DENSE) == 256 + 384 + 80
+    assert transformer.linear_weights(DENSE) == 256 + 384 + 80
     # routed 3 x 8 x 4 x (2 + 1) = 288, router 8 x 4 = 32
-    assert counts.linear_weights(MOE) == 256 + 288 + 32 + 80
+    assert transformer.linear_weights(MOE) == 256 + 288 + 32 + 80
     # a 3-token prompt: 2 x 3 x 640, the head once, 6 attended pairs
-    assert counts.prefill_flops(DENSE, 3) == 2 * 3 * 640 + 2 * 80 + 4 * 6 * 8
+    assert transformer.prefill_flops(DENSE, 3) == 2 * 3 * 640 + 2 * 80 + 4 * 6 * 8
     # two slots decoding at positions 0 and 2: 1 and 3 keys
-    assert counts.decode_flops(DENSE, [0, 2]) == 2 * (2 * 720) + 4 * 8 * (1 + 3)
-    assert counts.train_flops(DENSE, 2, 3) == 3 * 2 * (2 * 3 * 720 + 4 * 6 * 8)
+    assert transformer.decode_flops(DENSE, [0, 2]) == 2 * (2 * 720) + 4 * 8 * (1 + 3)
+    assert transformer.train_flops(DENSE, 2, 3) == 3 * 2 * (2 * 3 * 720 + 4 * 6 * 8)
 
 
 def test_olmo_train_step_share_of_peak():
     olmo = dict(d_model=2048, num_heads=16, num_kv_heads=16, num_layers=16, d_ff=8192,
                 vocab_size=50304)
-    assert counts.linear_weights(olmo) == 1_176_764_416
+    assert transformer.linear_weights(olmo) == 1_176_764_416
     # PR 23's 394 ms step: 15.27% of the bf16 peak
-    assert counts.train_flops(olmo, 8, 1024) / 0.394 / counts.PEAKS["bf16_flops_per_s"] == \
+    assert transformer.train_flops(olmo, 8, 1024) / 0.394 / counts.PEAKS["bf16_flops_per_s"] == \
         pytest.approx(0.1527, abs=5e-4)

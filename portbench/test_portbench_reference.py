@@ -6,7 +6,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from portbench import bench, reference, serving, tiny, training, weights  # noqa: E402
+from portbench import bench, families, serving, tiny, training, weights  # noqa: E402
 
 
 def _program(model):
@@ -20,9 +20,11 @@ def _program(model):
 def test_layout_is_the_programs(workload):
     from repro_torch.tree import flatten
 
-    model = bench.load(workload, 0, 1.0, False).model
+    run = bench.load(workload, 0, 1.0, False)
+    model = run.model
     _, shapes = _program(model)
-    mine = {k: (tuple(s), getattr(torch, d)) for k, (s, _, d) in weights.layout(model).items()}
+    layout = families.of(run.config).layout(model)
+    mine = {k: (tuple(s), getattr(torch, d)) for k, (s, _, d) in layout.items()}
     theirs = {k: (tuple(s), d) for k, (s, d) in flatten(shapes).items()}
     assert mine == theirs
 
@@ -34,9 +36,9 @@ def test_reference_follows_prefill_and_decode_in_float32(workload):
     from repro_torch.models import transformer
 
     run = tiny.run(workload)
-    model = run.model
-    params = weights.make(model, 3, "cpu")
-    p32 = {k: v for k, v in weights.leaves(model, 3, "cpu")}
+    model, fam = run.model, families.of(run.config)
+    params = weights.make(model, fam.layout(model), 3, "cpu")
+    p32 = {k: v for k, v in weights.leaves(model, fam.layout(model), 3, "cpu")}
     p32 = weights.nest({k: v.float() for k, v in p32.items()})
     cfg = dataclasses.replace(bench.program_config(model), dtype=torch.float32,
                               param_dtype=torch.float32)
@@ -51,7 +53,7 @@ def test_reference_follows_prefill_and_decode_in_float32(workload):
         outs.append(logits[0])
         toks.append(tok)
     seq = torch.cat([prompt[0], torch.cat(toks[:-1])])
-    ref = reference.served_logits(model, params, [seq], [torch.arange(10, 16)])[0]
+    ref = fam.served_logits(model, params, [seq], [torch.arange(10, 16)])[0]
     prog = torch.stack(outs)[:, : model["vocab_size"]]
     assert torch.allclose(prog, ref, atol=2e-4, rtol=1e-4), (prog - ref).abs().max()
 
@@ -61,10 +63,10 @@ def test_reference_train_steps_follow_the_programs_in_float32():
     from repro_torch.train.train_step import make_train_step
 
     run = tiny.run("olmo-1b.train")
-    model, opt = run.model, run.mix["optimizer"]
+    model, opt, fam = run.model, run.mix["optimizer"], families.for_training(run.config)
     cfg = dataclasses.replace(bench.program_config(model), dtype=torch.float32,
                               param_dtype=torch.float32, remat="none")
-    flat = dict(weights.leaves(model, 4, "cpu"))
+    flat = dict(weights.leaves(model, fam.layout(model), 4, "cpu"))
     params = weights.nest({k: v.float() for k, v in flat.items()})
     ocfg = OptConfig(**opt)
     state = init_opt_state(ocfg, params)
@@ -75,8 +77,8 @@ def test_reference_train_steps_follow_the_programs_in_float32():
         params, state, m = step(params, state, b)
         losses.append(float(m["loss"]))
         if i == 0:
-            grad = training.grad_norms(model, state, ocfg.b1)
-    ref = reference.train_steps(model, opt, flat, [
+            grad = training.grad_norms(fam.layout(model), state, ocfg.b1)
+    ref = fam.train_steps(model, opt, flat, [
         {k: torch.from_numpy(v) for k, v in b.items()} for b in batches])
     assert losses == pytest.approx(ref["loss"], rel=1e-5)
     for k in grad:
@@ -97,8 +99,8 @@ def test_control_reads_wider_than_the_program():
     params, engine, spans = serving.setup(run)
     w = serving.window(run, engine, spans)
     picked = serving.sample(w["egress"], run.seed, 6)
-    prog, ctrl = (serving.gap_numbers(serving.served_gaps(run.model, params, w["asked"], picked,
-                                                          "cpu", c)) for c in (False, "fp8"))
+    prog, ctrl = (serving.gap_numbers(serving.served_gaps(run, params, w["asked"], picked, c))
+                  for c in (False, "fp8"))
     assert ctrl["served_logit_gap"] > 3 * prog["served_logit_gap"]
     assert bench.passed(bench.judge({"served_logit_gap": prog["served_logit_gap"]}, tiny.GAP_LIMIT))
     assert not bench.passed(bench.judge({"served_logit_gap": ctrl["served_logit_gap"]},

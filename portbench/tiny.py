@@ -1,18 +1,18 @@
 """A cell cut to a size the CPU runs in seconds, for the tests: the same
-harness, program and reference, two layers of width 64 and a vocabulary of
-256, a few slots and short requests."""
+harness, program and reference, the model at its family's tiny sizes
+(``tiny(model)``; the transformer's: two layers of width 64 and a
+vocabulary of 256), a few slots and short requests."""
 from __future__ import annotations
 
 import copy
 import json
 import time
 
-from . import bench
+from . import bench, families
 
 # the serving cells of BENCHMARK.json
 SERVE = [c["name"] for c in json.loads((bench.ROOT / "BENCHMARK.json").read_text())["workloads"]
          if bench.data("traffic", c["traffic"])["kind"] == "serve"]
-TINY = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, d_ff=128, vocab_size=256)
 # bfloat16 rounding weighs more at width 64 than at the cell's width: sound
 # runs at this size read loss 5e-4, gradient 2e-3 and change 1.5e-3 (the
 # cell's limits are 1.2e-4, 7e-4 and 5e-3), so the tests hold them to 10x
@@ -21,15 +21,15 @@ TRAIN_LIMITS = {"loss_gap": 5e-3, "grad_norm_gap": 2e-2, "change_gap": 5e-2}
 # control's test): sound runs read a widest gap of 0.004-0.009, the float8
 # control 0.15-0.27
 GAP_LIMIT = {"served_logit_gap": 0.1}
-TINY_MOE = dict(num_experts=8, top_k=2, moe_d_ff=32, num_shared_experts=2, capacity_factor=4.0)
 
 
 def run(workload: str, seed: int = 5, seconds: float = 1.0) -> bench.Run:
-    r = bench.load(workload, seed, seconds, False)
-    model = dict(r.config["model"], **TINY)
-    if model.get("num_experts"):
-        model.update(TINY_MOE)
-    r.config = dict(r.config, model=model)
+    return shrink(bench.load(workload, seed, seconds, False))
+
+
+def shrink(r: bench.Run) -> bench.Run:
+    """A loaded run cut to a test's size, on the CPU."""
+    r.config = dict(r.config, model=families.of(r.config).tiny(r.config["model"]))
     r.mix = copy.deepcopy(r.mix)
     if r.mix["kind"] == "serve":
         r.mix["prompt"].update(median=12, min=4, max=24)

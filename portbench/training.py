@@ -26,9 +26,10 @@ import time
 import numpy as np
 import torch
 
-from . import counts, reference, weights
+from . import families, weights
 from .bench import (Run, end_to_end, judge, passed, program_config, read_per_layer,
-                    setup_line)
+                    setup_line, window_line)
+from .host import GcWatch
 from .trace import Spans, Stretch, breakdown, kernel_line
 from .traffic import train_batch
 
@@ -45,16 +46,22 @@ def _batch(run: Run, serial: int) -> dict:
     return train_batch(run.mix, run.model["vocab_size"], run.seed, serial)
 
 
-def grad_norms(model: dict, state: dict, b1: float) -> dict:
+def grad_norms(names, state: dict, b1: float) -> dict:
     """{leaf: clipped first gradient norm}, from the first moment after one step."""
     return {name: float(torch.linalg.vector_norm(_at(state["mu"], name).float())) / (1 - b1)
-            for name in weights.layout(model)}
+            for name in names}
 
 
-def change_norms(model: dict, seed: int, device, state: dict) -> dict:
+def drawn(run: Run):
+    """(dotted name, tensor) of the run's weights, made from its seed."""
+    model = run.model
+    return weights.leaves(model, families.of(run.config).layout(model), run.seed, run.device)
+
+
+def change_norms(run: Run, state: dict) -> dict:
     """Each leaf's float32 master against the weights made anew from the seed."""
     return {name: float(torch.linalg.vector_norm(_at(state["master"], name) - w0.float()))
-            for name, w0 in weights.leaves(model, seed, device)}
+            for name, w0 in drawn(run)}
 
 
 def gap(prog: dict, ref: dict, leaves=None) -> float:
@@ -76,29 +83,29 @@ def compare(prog: dict, ref: dict) -> dict:
 
 def setup(run: Run, steps: int = 3):
     """The step, its state and the readings of its first ``steps`` steps."""
-    from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
 
-    model = run.model
+    model, fam = run.model, families.for_training(run.config)
     cfg = dataclasses.replace(program_config(model), remat=run.mix["remat"])
     ocfg = OptConfig(**run.mix["optimizer"])
     marks = [("start", time.perf_counter())]
-    params = weights.make(model, run.seed, run.device)
+    params = weights.make(model, fam.layout(model), run.seed, run.device)
     state = init_opt_state(ocfg, params)
     marks.append(("weights and state", time.perf_counter()))
     spans = Spans(run.trace)
     step = spans.wrap("step", make_train_step(cfg, ocfg))
     prog = {"loss": []}
     for i in range(steps):
-        launches = flash_attention.LAUNCHES
+        before = fam.launches()
         params, state, m = step(params, state, _batch(run, i))
         prog["loss"].append(float(m["loss"]))
         if i == 0:
-            prog["grad_norm"] = grad_norms(model, state, ocfg.b1)
-            prog["k4_calls"] = flash_attention.LAUNCHES - launches  # the program's counter
+            prog["grad_norm"] = grad_norms(fam.layout(model), state, ocfg.b1)
+            # the program's counters
+            prog["calls"] = {k: n - before[k] for k, n in fam.launches().items()}
     marks.append((f"{steps} steps", time.perf_counter()))
-    prog["change"] = change_norms(model, run.seed, run.device, state)
+    prog["change"] = change_norms(run, state)
     marks.append(("readings", time.perf_counter()))
     setup_line(run, marks)
     spans.records.clear()
@@ -106,10 +113,11 @@ def setup(run: Run, steps: int = 3):
 
 
 def reference_readings(run: Run, steps: int = 3, **kw) -> dict:
-    flat = dict(weights.leaves(run.model, run.seed, run.device))
+    flat = dict(drawn(run))
     batches = [{k: torch.from_numpy(v).to(run.device) for k, v in _batch(run, i).items()}
                for i in range(steps)]
-    return reference.train_steps(run.model, run.mix["optimizer"], flat, batches, **kw)
+    fam = families.for_training(run.config)
+    return fam.train_steps(run.model, run.mix["optimizer"], flat, batches, **kw)
 
 
 def window(run: Run, step, params, state, spans: Spans) -> dict:
@@ -146,8 +154,11 @@ def window(run: Run, step, params, state, spans: Spans) -> dict:
 def run_cell(run: Run, memory_peak=lambda: 0) -> tuple:
     step, params, state, prog, spans = setup(run)
     setup_s = time.perf_counter() - run.t_start
-    w = window(run, step, params, state, spans)
+    with GcWatch() as gcw:
+        w = window(run, step, params, state, spans)
     peak = memory_peak()
+    print(gcw.line(), file=sys.stderr)
+    print(window_line([dict(s, kind="step") for s in w["steps"]]), file=sys.stderr)
     del step, params, state
     gc.collect()
     if torch.cuda.is_available():
@@ -158,19 +169,18 @@ def run_cell(run: Run, memory_peak=lambda: 0) -> tuple:
     result = {"correct": bool(w["steps"]) and bad == 0 and passed(checks),
               "attempted": len(w["steps"]), "failed": bad, "metrics": {},
               "device": {"memory_peak_bytes": peak}}
-    mix, model = run.mix, run.model
-    H = model["num_heads"]
-    per_step = {"flops": counts.train_flops(model, mix["batch"], mix["seq_len"]),
-                "k4_bound_s": prog["k4_calls"] * counts.bound_s(*counts.k4(
-                    mix["batch"], mix["seq_len"], H, model["num_kv_heads"], model["d_model"] // H)),
-                "tokens": mix["batch"] * mix["seq_len"]}
+    mix, model, fam = run.mix, run.model, families.for_training(run.config)
+    B, S = mix["batch"], mix["seq_len"]
+    per_step = {"flops": fam.train_flops(model, B, S),
+                **fam.train_bounds(model, B, S, prog["calls"]), "tokens": B * S}
     steps = [dict(s, kind="step", **per_step) for s in w["steps"]]
     if run.trace:
-        ctx = {"steps": steps, "egress": [], "window_s": w["window_s"], "trace": w["trace"]}
+        ctx = {"steps": steps, "egress": [], "window_s": w["window_s"], "trace": w["trace"],
+               "kernels": {key: needle for needle, key in fam.KERNELS}}
         result["metrics"] = read_per_layer(run, ctx)
         result["device"].update(busy_s=w["trace"]["busy_s"], window_s=w["trace"]["window_s"])
         result["breakdown"] = breakdown(w["trace"])
-        print(kernel_line(w["trace"], ("flash_fwd", "dispatch_one_kernel")), file=sys.stderr)
+        print(kernel_line(w["trace"], [needle for needle, _ in fam.KERNELS]), file=sys.stderr)
     else:
         tokens = sum(s["tokens"] for s in steps)
         result["metrics"] = end_to_end(run, {"setup_s": setup_s,
